@@ -1,0 +1,171 @@
+"""Compiled execution pass of the DittoEngine (paper §IV-C deployment).
+
+Mirror of ``src/repro/core/ditto/compiled.py``. The eager
+:class:`~repro_torch.core.ditto.engine.DittoEngine` is the calibration
+pass; once its scales and per-layer modes are fixed, the remaining steps
+run through the kernels:
+
+  act   layers (and spatial ones, whose eager branch computes the direct
+        GEMM) launch ``int8_matmul``;
+  diff  layers launch ``diff_encode`` then ``ditto_diff_matmul``, so zero
+        tiles are skipped on the card, and the measured per-step
+        tile-class histogram (``tile_hist``) feeds the pricing.
+
+Nothing is traced: PyTorch runs eagerly, and "compiled" names the pass
+that launches the hand-written kernels. Where the reference scanned the
+attention identity over the (batch x heads) dim, each sub-operation here
+is one batched launch, bit-identical to the per-element loop. Token and
+feature dims are zero-padded to the 128-tile grid inside the ops wrappers,
+so the pass is bit-identical to the eager engine in the int32 domain.
+
+With ``collect_stats`` the step also reduces zero/low/full class fractions
+on the card and returns them as (3,) tensors in an aux dict; the engine
+turns them into cost-model records (``record_compiled_step``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ...kernels import ops
+from . import classify, quant
+from .engine import DittoEngine
+from .plan import DittoPlan
+
+
+def _class_fractions(d: torch.Tensor) -> torch.Tensor:
+    """(zero, low, full) fractions of an int-domain Δ tensor, as (3,) f32."""
+    c = classify.element_classes(d)
+    return torch.stack([c["zero"], c["low"], c["full"]])
+
+
+def _tile_hist(classes: torch.Tensor) -> torch.Tensor:
+    """(n_zero, n_low, n_full) histogram of a diff_encode class map — the
+    tiles the kernel actually skipped / would narrow / ran at int8. (Not
+    ``torch.bincount``: on CUDA it reads the maximum back to the host.)"""
+    return torch.stack([(classes == c).sum() for c in range(3)])
+
+
+def _act_fractions(q: torch.Tensor) -> torch.Tensor:
+    """cls_act triple of the eager engine: (zero, 0, nonzero)."""
+    c = classify.element_classes(q)
+    return torch.stack([c["zero"], torch.zeros_like(c["zero"]), c["low"] + c["full"]])
+
+
+def _spatial_fractions(q2: torch.Tensor) -> torch.Tensor:
+    """cls_spatial triple of the eager oracle: row-delta fractions with the
+    full-precision first row folded in at weight 1/t (in float32, as the
+    reference's compiled step computes it)."""
+    t = q2.shape[0]
+    z, l, f = _class_fractions(classify.spatial_diff(q2, axis=0)[1:])
+    w0 = 1.0 / t
+    return torch.stack([z * (1 - w0), l * (1 - w0), f * (1 - w0) + w0])
+
+
+def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
+                 plan: DittoPlan) -> tuple[torch.Tensor, dict, dict]:
+    """Compiled linear op: params in, state in -> (y fp32, state, aux).
+    Bit-identical int32 y_prev to the eager path for every mode."""
+    x2 = x.reshape(-1, x.shape[-1])
+    n = p["w_q"].shape[1]
+    q_t = quant.quantize(x2, p["x_scale"])
+
+    aux: dict = {}
+    if mode == "diff":
+        y_i32, classes = ops.ditto_linear_step(q_t, st["x_prev"], p["w_q"], st["y_prev"],
+                                               plan=plan)
+        if plan.collect_stats:
+            aux["tile_hist"] = _tile_hist(classes)
+    else:  # act, and spatial (whose eager branch computes the direct GEMM)
+        y_i32 = ops.int8_act_matmul(q_t, p["w_q"], plan=plan)
+    if plan.collect_stats:
+        if mode == "spatial":
+            aux["cls_diff"] = _class_fractions(classify.spatial_diff(q_t, axis=0)[1:])
+        else:
+            aux["cls_diff"] = _class_fractions(q_t.to(torch.int16) - st["x_prev"].to(torch.int16))
+        if q_t.shape[0] > 1:
+            aux["cls_spatial"] = _spatial_fractions(q_t)
+        aux["cls_act"] = _act_fractions(q_t)
+
+    new_st = dict(x_prev=q_t, y_prev=y_i32)
+    y = y_i32.to(torch.float32) * p["x_scale"] * p["w_scale"][None, :]
+    if p["bias"] is not None:
+        y = y + p["bias"]
+    return y.reshape(x.shape[:-1] + (n,)), new_st, aux
+
+
+def attention_apply(p: dict, mode: str, a: torch.Tensor, b: torch.Tensor, st: dict, *,
+                    plan: DittoPlan) -> tuple[torch.Tensor, dict, dict]:
+    """Compiled attention matmul (a @ b^T per leading-dim element): diff
+    mode composes the two-sub-op identity (ops.attention_delta), act mode
+    runs int8_matmul against b's rows; one launch per kernel for all
+    (batch x heads) elements."""
+    lead = a.shape[:-2]
+    m, d_ = a.shape[-2:]
+    n = b.shape[-2]
+    a2 = a.reshape(-1, m, d_)
+    b2 = b.reshape(-1, n, d_)
+    qa = quant.quantize(a2, p["a_scale"])
+    qb = quant.quantize(b2, p["b_scale"])
+
+    aux: dict = {}
+    if mode == "diff":
+        y_i32, (cls_dk, cls_dq) = ops.attention_delta(qa, st["a_prev"], qb, st["b_prev"],
+                                                      st["y_prev"], plan=plan)
+        if plan.collect_stats:  # both sub-ops, all (batch x heads) elements
+            aux["tile_hist"] = _tile_hist(cls_dk) + _tile_hist(cls_dq)
+    else:
+        y_i32 = ops.int8_act_matmul(qa, qb, plan=plan, w_transposed=True)
+    if plan.collect_stats:
+        da = qa.to(torch.int16) - st["a_prev"].to(torch.int16)
+        db = qb.to(torch.int16) - st["b_prev"].to(torch.int16)
+        aux["cls_diff"] = _class_fractions(torch.cat([da.reshape(-1), db.reshape(-1)]))
+        aux["cls_act"] = _act_fractions(torch.cat([qa.reshape(-1), qb.reshape(-1)]))
+
+    new_st = dict(a_prev=qa, b_prev=qb, y_prev=y_i32)
+    y = y_i32.to(torch.float32) * p["a_scale"] * p["b_scale"]
+    return y.reshape(lead + (m, n)), new_st, aux
+
+
+class CompiledDittoEngine:
+    """Per-layer compiled ops with static modes, built from a calibrated
+    eager engine. All methods are pure (state in, state out)."""
+
+    def __init__(self, engine: DittoEngine, *, plan: DittoPlan | None = None):
+        if not engine.ready_for_compiled():
+            raise ValueError(
+                "engine not calibrated: run >= 1 eager step (>= 2 for defo policies, "
+                "whose mode decision lands after the step-2 diff probe) before "
+                f"compiling (step_idx={engine.step_idx}, decided={engine._decided})")
+        self.plan = DittoPlan() if plan is None else plan
+        self.engine = engine
+        self.modes = engine.compiled_modes()
+        self.meta = engine.meta
+        self.params: dict[str, dict] = {}
+        for name, st in engine.layers.items():
+            if st.w is not None:
+                self.params[name] = dict(w_q=st.w.q, w_scale=st.w.scale,
+                                         bias=st.bias, x_scale=st.x_scale)
+            else:
+                self.params[name] = dict(a_scale=st.a_scale, b_scale=st.b_scale)
+
+    def init_state(self) -> dict:
+        """Initial temporal state = the eager engine's state after its last
+        calibration step (int8 x_prev / int32 y_prev per layer)."""
+        state: dict[str, dict] = {}
+        for name, st in self.engine.layers.items():
+            if st.w is not None:
+                state[name] = dict(x_prev=st.x_prev, y_prev=st.y_prev)
+            else:
+                state[name] = dict(a_prev=st.a_prev, b_prev=st.b_prev, y_prev=st.y_prev)
+        return state
+
+    def linear(self, name: str, x: torch.Tensor, st: dict) -> tuple[torch.Tensor, dict, dict]:
+        """Mirror of DittoEngine.linear with the mode fixed; delegates to
+        :func:`linear_apply`."""
+        return linear_apply(self.params[name], self.modes[name], x, st, plan=self.plan)
+
+    def attention_matmul(self, name: str, a: torch.Tensor, b: torch.Tensor,
+                         st: dict) -> tuple[torch.Tensor, dict, dict]:
+        """Mirror of DittoEngine.attention_matmul with the mode fixed;
+        delegates to :func:`attention_apply`."""
+        return attention_apply(self.params[name], self.modes[name], a, b, st, plan=self.plan)

@@ -1,0 +1,181 @@
+"""Shared kernel-wrapper helpers of the port.
+
+* :func:`resolve_device` — the port's counterpart of the reference's
+  ``resolve_interpret``: entry points run on ``cuda`` unless the caller
+  asks for the CPU, and raise when no card is present instead of carrying
+  on silently on the CPU.
+* :func:`pad2` — zero-padding the last two dims up to the tile grid (the
+  128-tile padding contract of every kernel module).
+* :func:`validate_low_bits` — the ``low_bits`` domain check.
+* :func:`cuda_fn` / :func:`build_library` — build the CUDA sources under
+  ``csrc`` with ``nvcc`` into one shared library with a plain C interface
+  and bind its entry points with ``ctypes``. The library is named after a
+  hash of the sources and flags, so a stale build is never loaded; it is
+  built on first use, never at import (the CPU tests import every module).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
+           "resolve_device", "library_path", "build_library", "cuda_fn",
+           "launch_check", "stream_ptr", "check_cuda_operand"]
+
+#: The int8-everywhere default; DittoPlan.low_bits and every kernel
+#: signature share this one constant.
+DEFAULT_LOW_BITS = 8
+
+#: Largest |Δ| a signed 4-bit lane holds: the class-1 (low) tile threshold
+#: of diff_encode, the element classes and the BOPs accounting.
+LOW_BIT_MAX = 7
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Asking for ``cuda`` without one raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU")
+    return dev
+
+
+def pad2(a: torch.Tensor, br: int, bc: int, fill: int = 0) -> torch.Tensor:
+    """Zero-pad the last two dims (R, C) so R % br == C % bc == 0."""
+    r, c = a.shape[-2:]
+    pr, pc = (-r) % br, (-c) % bc
+    if pr or pc:
+        a = F.pad(a, (0, pc, 0, pr), value=fill)
+    return a
+
+
+def validate_low_bits(low_bits: int) -> int:
+    """Only 4 (packed-int4 low tiles) and 8 (int8 everywhere) exist."""
+    if low_bits not in (4, 8):
+        raise ValueError(
+            f"low_bits must be 4 (packed-int4 low-tile branch) or 8 (int8), "
+            f"got {low_bits!r}")
+    return low_bits
+
+
+# ------------------------------------------------------------ CUDA library
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libditto_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library(*, verbose: bool = False) -> tuple[Path, float]:
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, all started together),
+    link them into one shared library and return ``(path, seconds)``.
+    Returns at once with 0 seconds when the library for these sources
+    exists already."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ("-Xptxas", "-v") if verbose else ()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, _, proc in jobs:
+            log, _ = proc.communicate()
+            if verbose and log:
+                print(f"--- nvcc {src.name}\n{log}", flush=True)
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp_so = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp_so),
+                               *(str(o) for _, o, _ in jobs)],
+                              capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_so, out)
+    return out, time.perf_counter() - t0
+
+
+_lib: ctypes.CDLL | None = None
+_fns: dict = {}
+
+
+def cuda_fn(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of the kernel library (built and loaded on first
+    use), with its ``argtypes`` declared and an ``int`` (cudaError_t)
+    result."""
+    global _lib
+    fn = _fns.get(name)
+    if fn is None:
+        if _lib is None:
+            path, _ = build_library()
+            lib = ctypes.CDLL(str(path))
+            lib.ditto_error_string.argtypes = [ctypes.c_int]
+            lib.ditto_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        fn = getattr(_lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch_check(name: str, rc: int) -> None:
+    """Raise when a C entry returned a non-zero ``cudaGetLastError()``."""
+    if rc:
+        msg = _lib.ditto_error_string(rc).decode() if _lib is not None else ""
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the tensor's device, as a C pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """What every kernel needs of a tensor operand: on the card, the right
+    dtype, contiguous, and 16-byte aligned for vector loads."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer is not 16-byte aligned")

@@ -1,0 +1,63 @@
+"""Encoding-Unit kernel: temporal-difference class per tile, for Hopper.
+
+Replaces ``src/repro/kernels/diff_encode.py: diff_encode`` (Pallas body
+``_kernel``): one int32 class per (128, 128) tile of Δ = x_t - x_prev —
+0 if max|Δ| == 0, 1 if max|Δ| <= LOW_BIT_MAX (7), else 2 — shape
+(M/128, K/128), the map ``ditto_diff_matmul`` consumes to skip class-0
+tiles.
+
+Kernel (``csrc/diff_encode.cu``): one 256-thread block per tile; each
+thread reads four 16-byte vectors of both operands, and the block reduces
+max|Δ| by warp shuffle then shared memory and writes one int32. A leading
+batch dim runs as the grid's z axis (all heads of an attention layer in
+one launch).
+
+What bounds it on the H100: it reads 2 bytes and does a few integer
+operations per element, so its bound is bytes (2·M·K over 3.35 TB/s).
+At the main path's shapes the inputs are small (0.6-2.4 MB), so launch
+latency and the 36-144 blocks a launch has, against 132 SMs, decide its
+time; the measured time sits in PERF.md beside its bound.
+
+Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.encode_classes`
+zero-pads both operands identically, so padding is class 0). On a CPU
+tensor the wrapper runs the plain version; on a CUDA tensor it launches
+the kernel or raises. Only 128 x 128 tiles exist on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import common
+from .ref import diff_encode_ref
+
+#: Kernel launches so far (chip_smoke.py zeroes it and reads it around a run).
+launches = 0
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def diff_encode(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
+                bk: int = 128) -> torch.Tensor:
+    """x_*: (..., M, K) int8 -> tile classes (..., M/bm, K/bk) int32."""
+    global launches
+    m, k = x_t.shape[-2:]
+    if x_prev.shape != x_t.shape or m % bm or k % bk:
+        raise ValueError(f"diff_encode: shapes {tuple(x_t.shape)}, {tuple(x_prev.shape)} "
+                         f"do not tile by ({bm}, {bk})")
+    if x_t.device.type == "cpu":
+        return diff_encode_ref(x_t, x_prev, (bm, bk))
+    if (bm, bk) != (128, 128):
+        raise ValueError(f"diff_encode: the CUDA kernel tiles by 128, got ({bm}, {bk})")
+    common.check_cuda_operand("diff_encode x_t", x_t, torch.int8)
+    common.check_cuda_operand("diff_encode x_prev", x_prev, torch.int8)
+    lead = x_t.shape[:-2]
+    out = torch.empty(lead + (m // bm, k // bk), dtype=torch.int32, device=x_t.device)
+    fn = common.cuda_fn("ditto_diff_encode", _ARGTYPES)
+    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), out.data_ptr(), math.prod(lead), m, k, m * k,
+            (m // bm) * (k // bk), common.LOW_BIT_MAX, common.stream_ptr(x_t))
+    common.launch_check("diff_encode", rc)
+    launches += 1
+    return out

@@ -1,0 +1,199 @@
+"""Port kernels vs the reference's Pallas kernels, bit for bit.
+
+Inputs are made with numpy from a seed and fed to both packages: the
+reference's ops run their Pallas kernels in interpret mode on the CPU (as
+its own tests do), the port's wrappers run their plain PyTorch versions
+(a CPU tensor selects them). Shapes are deliberately off the 128-tile
+grid, Δ mixes sit on the class boundaries {0, 7, 8}, and y_prev is given
+and absent, with plain and transposed weights. The card leg holds each
+CUDA kernel against its plain version and skips where there is no card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels.common import DEFAULT_LOW_BITS as REF_DEFAULT_LOW_BITS  # noqa: E402
+from repro.kernels.diff_encode import LOW_BIT_MAX as REF_LOW_BIT_MAX  # noqa: E402
+from repro_torch.kernels import common, ops, ref  # noqa: E402
+from repro_torch.kernels import diff_encode as pdiff_encode  # noqa: E402
+from repro_torch.kernels import ditto_diff_matmul as pdiff_mm  # noqa: E402
+from repro_torch.kernels import int8_matmul as pint8  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Tiny CPU ops: PyTorch's thread pool costs more than it saves here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _i8(rng, shape, lo=-127, hi=127):
+    return rng.integers(lo, hi + 1, size=shape).astype(np.int8)
+
+
+def _delta_pair(rng, shape, mix):
+    """(x_t, x_prev) int8 whose Δ follows ``mix``: zero | low (|Δ| <= 7) |
+    edge (|Δ| in {7, 8}) | full."""
+    x_t = _i8(rng, shape, -100, 100)
+    if mix == "zero":
+        d = np.zeros(shape, np.int32)
+    elif mix == "low":
+        d = rng.integers(-7, 8, size=shape)
+    elif mix == "edge":
+        d = rng.choice([-8, -7, 7, 8], size=shape)
+    else:
+        d = rng.integers(-254, 255, size=shape)
+    return x_t, np.clip(x_t.astype(np.int32) - d, -127, 127).astype(np.int8)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_constants_match_reference():
+    assert common.LOW_BIT_MAX == REF_LOW_BIT_MAX
+    assert common.DEFAULT_LOW_BITS == REF_DEFAULT_LOW_BITS
+
+
+@pytest.mark.parametrize("m,k,n", [(96, 128, 160), (160, 96, 128), (128, 160, 96)])
+@pytest.mark.parametrize("w_transposed", [False, True])
+def test_int8_act_matmul_matches_pallas(m, k, n, w_transposed):
+    rng = np.random.default_rng(m + 7 * k + n + w_transposed)
+    x = _i8(rng, (m, k))
+    w = _i8(rng, (n, k) if w_transposed else (k, n))
+    want = np.asarray(rops.int8_act_matmul(jnp.asarray(x), jnp.asarray(w.T if w_transposed else w)))
+    got = ops.int8_act_matmul(_t(x), _t(w), w_transposed=w_transposed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not w_transposed:  # the scaled fp32 act path on top of it
+        xs = np.float32(0.03)
+        ws = rng.random(n).astype(np.float32)
+        np.testing.assert_array_equal(
+            ops.quantized_matmul(_t(x), _t(w), torch.tensor(xs), _t(ws)).numpy(),
+            np.asarray(rops.quantized_matmul(jnp.asarray(x), jnp.asarray(w), xs, jnp.asarray(ws))))
+
+
+MIXES = ["zero", "low", "edge", "full"]
+
+
+@pytest.mark.parametrize("mix", MIXES)
+def test_encode_classes_matches_pallas(mix):
+    rng = np.random.default_rng(MIXES.index(mix))
+    x_t, x_p = _delta_pair(rng, (160, 288), mix)
+    if mix == "edge":  # one tile exactly at the low/full boundary each way
+        x_p[:128, :128] = np.clip(x_t[:128, :128].astype(np.int32) - 7, -127, 127)
+    want = np.asarray(rops.encode_classes(jnp.asarray(x_t), jnp.asarray(x_p)))
+    got = ops.encode_classes(_t(x_t), _t(x_p))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(160, 288, 96), (288, 160, 130)])
+@pytest.mark.parametrize("with_y_prev", [True, False])
+@pytest.mark.parametrize("w_transposed", [False, True])
+def test_ditto_linear_step_matches_pallas(shape, with_y_prev, w_transposed):
+    m, k, n = shape
+    rng = np.random.default_rng(m * k + n + 2 * with_y_prev + w_transposed)
+    # rows mix every class: zero, low, edge and full bands
+    x_t, x_p = _delta_pair(rng, (m, k), "full")
+    for r0, mix in zip(range(0, m, 32), ["zero", "low", "edge", "full", "zero"]):
+        x_t[r0:r0 + 32], x_p[r0:r0 + 32] = _delta_pair(rng, (min(32, m - r0), k), mix)
+    x_p[:128, :128] = x_t[:128, :128]  # one whole class-0 tile
+    w = _i8(rng, (n, k) if w_transposed else (k, n))
+    y_prev = rng.integers(-2**20, 2**20, size=(m, n)).astype(np.int32) if with_y_prev else None
+    want_y, want_c = rops.ditto_linear_step(
+        jnp.asarray(x_t), jnp.asarray(x_p), jnp.asarray(w),
+        None if y_prev is None else jnp.asarray(y_prev), w_transposed=w_transposed)
+    got_y, got_c = ops.ditto_linear_step(_t(x_t), _t(x_p), _t(w),
+                                         None if y_prev is None else _t(y_prev),
+                                         w_transposed=w_transposed)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+    assert 0 in got_c and 2 in got_c
+
+
+def test_attention_delta_batched_matches_pallas_per_element():
+    """One batched port call == the reference's per-element calls."""
+    rng = np.random.default_rng(3)
+    b, m, n, d = 3, 96, 130, 40
+    q_t, q_p = _delta_pair(rng, (b, m, d), "low")
+    k_t, k_p = _delta_pair(rng, (b, n, d), "full")
+    s_prev = rng.integers(-2**20, 2**20, size=(b, m, n)).astype(np.int32)
+    got, (cls_dk, cls_dq) = ops.attention_delta(_t(q_t), _t(q_p), _t(k_t), _t(k_p), _t(s_prev))
+    for i in range(b):
+        want, (wdk, wdq) = rops.attention_delta(*(jnp.asarray(a[i]) for a in
+                                                  (q_t, q_p, k_t, k_p, s_prev)))
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
+        np.testing.assert_array_equal(cls_dk[i].numpy(), np.asarray(wdk))
+        np.testing.assert_array_equal(cls_dq[i].numpy(), np.asarray(wdq))
+
+
+def test_plain_diff_matmul_skips_class0_tiles_like_the_kernel():
+    """The plain version is the kernel's function for ANY class map: a
+    tile marked 0 contributes nothing even if its Δ is not zero."""
+    rng = np.random.default_rng(5)
+    x_t, x_p = _delta_pair(rng, (256, 256), "full")
+    w = _t(_i8(rng, (256, 128)))
+    cls = torch.tensor([[0, 2], [2, 0]], dtype=torch.int32)
+    got = pdiff_mm.ditto_diff_matmul(_t(x_t), _t(x_p), w, None, cls)
+    d = _t(x_t).int() - _t(x_p).int()
+    d[:128, :128] = 0
+    d[128:, 128:] = 0
+    np.testing.assert_array_equal(got.numpy(), ref.exact_matmul(d, w).numpy())
+
+
+def test_unported_variants_raise():
+    x = torch.zeros(128, 128, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.ditto_linear_step(x, x, x, low_bits=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.ditto_linear_step(x, x, x, fused=True)
+    with pytest.raises(ValueError):
+        ops.ditto_linear_step(x, x, x, low_bits=2)
+    with pytest.raises(ValueError, match="tile"):
+        pint8.int8_matmul(torch.zeros(100, 128, dtype=torch.int8), x)
+
+
+def test_cpu_wrappers_launch_nothing():
+    before = (pint8.launches, pdiff_encode.launches, pdiff_mm.launches)
+    x = torch.ones(128, 128, dtype=torch.int8)
+    ops.ditto_linear_step(x, x, x)
+    ops.int8_act_matmul(x, x)
+    assert (pint8.launches, pdiff_encode.launches, pdiff_mm.launches) == before
+
+
+# ------------------------------------------------------------- card leg
+PATH_SHAPES = [((), 512, 1152, 1152, False), ((), 128, 1152, 6912, False),
+               ((32,), 256, 128, 256, True), ((32,), 256, 256, 128, False)]
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+@pytest.mark.parametrize("lead,m,k,n,w_transposed", PATH_SHAPES)
+def test_cuda_kernels_match_plain_versions(lead, m, k, n, w_transposed):
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+
+    def r8(*shape, lo=-127, hi=128):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int8)
+
+    x_t = r8(*lead, m, k)
+    x_p = (x_t.int() - torch.randint(-8, 9, x_t.shape, generator=g, device="cuda",
+                                     dtype=torch.int32)).clamp(-127, 127).to(torch.int8)
+    x_p[..., :128, :128] = x_t[..., :128, :128]
+    w = r8(*lead, n, k) if w_transposed else r8(*lead, k, n)
+    y_prev = torch.randint(-2**20, 2**20, (*lead, m, n), generator=g, device="cuda",
+                           dtype=torch.int32)
+    n0 = (pint8.launches, pdiff_encode.launches, pdiff_mm.launches)
+    y = pint8.int8_matmul(x_t, w, w_transposed=w_transposed)
+    assert torch.equal(y, ref.int8_matmul_ref(x_t, w, w_transposed=w_transposed))
+    cls = pdiff_encode.diff_encode(x_t, x_p)
+    assert torch.equal(cls, ref.diff_encode_ref(x_t, x_p, (128, 128)))
+    for yp in (y_prev, None):
+        got = pdiff_mm.ditto_diff_matmul(x_t, x_p, w, yp, cls, w_transposed=w_transposed)
+        assert torch.equal(got, ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls,
+                                                          w_transposed=w_transposed))
+    assert (pint8.launches, pdiff_encode.launches, pdiff_mm.launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 2)
