@@ -1,95 +1,123 @@
 """Where a compiled denoising step of the PyTorch/CUDA port spends its time.
 
-    python3 benchmarks/torch_step_profile.py [--policy diff] [--steps 10] [--active 3]
+    python3 benchmarks/torch_step_profile.py [--policy act diff] [--steps 8] [--short 4]
 
 Serves DiT-XL/2 at B = 2 (random weights from a seed, adaLN ``mod`` weights
-refilled N(0, 0.02), as chip_smoke.py does) through the port's own serving
-pieces — ``DittoEngine``, ``make_denoise_fn`` and the DDIM sampler, as
-``repro_torch.sim.harness.serve_records`` assembles them — once with the
-default ``collect_stats=True`` plan and once with ``collect_stats=False``.
-Per run it prints:
+refilled N(0, 0.02), as chip_smoke.py does) through
+``repro_torch.sim.harness.serve_records`` at ``--steps`` and at ``--short``
+DDIM steps. Both calls run the same two eager calibration steps and the
+same fixed costs of a call, and every further step is a compiled one, so
+the difference between the two calls over ``--steps - --short`` is the cost
+of one compiled step. Per policy, with the default ``collect_stats=True``
+plan and with ``collect_stats=False``, it prints:
 
-- ``step_ms``: wall time of a compiled step before the profiler starts
-  (host clock, synchronized at each step's end; the steps just before the
-  profiled window, all compiled);
-- from ``torch.profiler`` over the last ``--active`` steps: the device's
-  busy time per step (the sum of its kernels', copies' and fills' device
-  time), the device's idle share against ``step_ms``, the device
-  activities per step, the top ops by host time and the top kernels by
-  device time.
+- ``step_ms``: that difference of the two calls' wall times (host clock,
+  each call ends in ``torch.cuda.synchronize()``; median of ``--reps``
+  unprofiled calls each, after one warm-up call);
+- from ``torch.profiler`` around one more call of each length, the same
+  difference of: the device's busy time (its kernels', copies' and fills'
+  device time), the device activities, the device time and launches of the
+  port's three kernels and of the top device items, and the top host ops;
+  and the device's idle share against ``step_ms``.
 
-Needs a CUDA card.
+Defo is left out: its modes depend on the timesteps of the calibration
+steps, which differ between the two lengths. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import statistics
 import sys
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, schedule
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "src"))
 
 from repro_torch.core import diffusion  # noqa: E402
-from repro_torch.core.ditto import DittoEngine, DittoPlan, make_denoise_fn  # noqa: E402
+from repro_torch.core.ditto import DittoPlan  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
+from repro_torch.sim import harness  # noqa: E402
+
+# the port's kernels, by the name of their __global__ function in csrc/
+PORT_KERNELS = {"int8_matmul": "int8_matmul_kernel", "diff_encode": "diff_encode_kernel",
+                "ditto_diff_matmul": "diff_matmul_kernel"}
 
 
-def profile_run(params, x_T, labels, plan: DittoPlan, active: int) -> dict:
-    sched = diffusion.linear_schedule(1000).to("cuda")
-    eng = DittoEngine(policy=plan.policy, collect_oracle=plan.collect_stats)
-    fn = make_denoise_fn(params, dit.DIT_XL2, eng, plan)
-    marks: list[float] = []
+def serve(inputs, plan: DittoPlan) -> float:
+    """Wall seconds of one serve_records call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    harness.serve_records(*inputs, plan, device="cuda")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
-    def on_step(prof):
-        def callback(**_):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            prof.step()
-        return callback
 
-    wait = plan.steps - active - 1
-    if wait - 1 - active < 2:  # steps 0-1 run eager: time compiled steps only
-        raise ValueError(f"--steps must be at least {2 * active + 4} for --active {active}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=wait, warmup=1, active=active, repeat=1)) as prof:
-        eng.begin_sample()
-        diffusion.ddim_sample(sched, fn, x_T, steps=plan.steps, labels=labels,
-                              callback=on_step(prof))
-    # unprofiled compiled steps: the `active` steps before the warmup step
-    step_ms = (marks[wait - 1] - marks[wait - 1 - active]) / active * 1e3
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("ProfilerStep")]
-    busy_ms = sum(e.time_range.elapsed_us() for e in device) / active / 1e3
-    by_kernel: dict = {}
-    for e in device:
-        ms, n = by_kernel.get(e.name, (0.0, 0))
-        by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / active, n + 1 / active)
-    top_dev = sorted(by_kernel.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    top_host = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+def profiled(inputs, plan: DittoPlan) -> tuple[dict, dict]:
+    """Per name, (device ms, count) of every device activity and the host
+    ops' self time in ms, over one serve_records call."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve(inputs, plan)
+    device: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = device.get(e.name, (0.0, 0))
+            device[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    return device, host
+
+
+def step_profile(inputs, policy: str, collect_stats: bool, steps: int, short: int,
+                 reps: int) -> dict:
+    long_plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats)
+    short_plan = DittoPlan(steps=short, policy=policy, collect_stats=collect_stats)
+    serve(inputs, short_plan)  # warm-up
+    walls = {steps: [], short: []}
+    for _ in range(reps):
+        for plan in (long_plan, short_plan):
+            walls[plan.steps].append(serve(inputs, plan))
+    d = steps - short
+    step_ms = (statistics.median(walls[steps]) - statistics.median(walls[short])) / d * 1e3
+    (dev_l, host_l), (dev_s, host_s) = profiled(inputs, long_plan), profiled(inputs, short_plan)
+    per_step = {}
+    for name in dev_l.keys() | dev_s.keys():
+        (ms_l, n_l), (ms_s, n_s) = dev_l.get(name, (0.0, 0)), dev_s.get(name, (0.0, 0))
+        per_step[name] = ((ms_l - ms_s) / d, (n_l - n_s) / d)
+    busy_ms = sum(ms for ms, _ in per_step.values())
+    kernels = {}
+    for port, fn in PORT_KERNELS.items():
+        hits = [v for name, v in per_step.items() if fn in name]
+        kernels[port] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+    host = {k: (host_l.get(k, 0.0) - host_s.get(k, 0.0)) / d
+            for k in host_l.keys() | host_s.keys()}
     return {
-        "policy": plan.policy, "collect_stats": plan.collect_stats,
+        "policy": policy, "collect_stats": collect_stats, "steps": [steps, short],
         "step_ms": step_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_ms,
-        "device_activities_per_step": len(device) / active,
-        "top_host_ms_per_step": [(e.key, e.self_cpu_time_total / active / 1e3,
-                                  e.count / active) for e in top_host],
-        "top_device_ms_per_step": [(name[:70], ms, n) for name, (ms, n) in top_dev],
+        "device_activities_per_step": sum(n for _, n in per_step.values()),
+        "port_kernels_ms_launches_per_step": kernels,
+        "top_device_ms_launches_per_step": sorted(
+            ((name[:70], ms, n) for name, (ms, n) in per_step.items()),
+            key=lambda t: t[1], reverse=True)[:10],
+        "top_host_ms_per_step": sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:12],
     }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--policy", default="diff", choices=("act", "diff", "defo"))
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--active", type=int, default=3)
+    ap.add_argument("--policy", nargs="+", default=["act", "diff"], choices=("act", "diff"))
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--short", type=int, default=4)
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
+    if not 2 <= args.short < args.steps:
+        ap.error("need 2 <= --short < --steps: steps 0-1 run eager")
     if not torch.cuda.is_available():
         print("torch_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
@@ -98,10 +126,12 @@ def main() -> int:
     params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
     x_T = torch.randn((2, 32, 32, 4), generator=g, device="cuda")
     labels = torch.tensor([207, 360], device="cuda")
+    inputs = (params, dit.DIT_XL2, diffusion.linear_schedule(1000), x_T, labels)
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
-    for collect_stats in (True, False):
-        plan = DittoPlan(steps=args.steps, policy=args.policy, collect_stats=collect_stats)
-        print(json.dumps(profile_run(params, x_T, labels, plan, args.active)), flush=True)
+    for policy in args.policy:
+        for collect_stats in (True, False):
+            print(json.dumps(step_profile(inputs, policy, collect_stats, args.steps, args.short,
+                                          args.reps)), flush=True)
     return 0
 
 

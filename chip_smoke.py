@@ -18,7 +18,8 @@ Phases (any failure raises and the script exits non-zero):
              and every kernel must have launched during these runs.
 4. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
-             flushed before each, beside its bound, its plain version and,
+             flushed before each, beside its bound (the work at the path's
+             own shapes, not the 128-padded ones), its plain version and,
              where one PyTorch call computes the same function, that call.
 
 The last lines are the kernels JSON, the card's name and power limit, and
@@ -149,21 +150,34 @@ def phase_parity() -> dict:
 class Capture:
     """Wraps the kernel entry points that ``ops`` calls: counts calls per
     (kernel, shape) and keeps the last call's arguments at each shape, so
-    phase 4 times every kernel on the inputs the main path gave it."""
+    phase 4 times every kernel on the inputs the main path gave it. It also
+    wraps the two ``ops`` functions the compiled pass calls, to note each
+    call's (M, K, N) before ``ops`` pads it to the 128-tile grid."""
 
     def __init__(self):
         self.calls: dict = {}
         self.last: dict = {}
+        self.unpadded = None
         self.orig = (ops.int8_matmul, ops.diff_encode, ops.ditto_diff_matmul)
+        self.orig_ops = (ops.int8_act_matmul, ops.ditto_linear_step)
         ops.int8_matmul = self._wrap("int8_matmul", self.orig[0])
         ops.diff_encode = self._wrap("diff_encode", self.orig[1])
         ops.ditto_diff_matmul = self._wrap("ditto_diff_matmul", self.orig[2])
+        ops.int8_act_matmul = self._note_unpadded(self.orig_ops[0], w_at=1)
+        ops.ditto_linear_step = self._note_unpadded(self.orig_ops[1], w_at=2)
+
+    def _note_unpadded(self, fn, w_at):
+        def wrapped(*args, **kw):
+            x, w = args[0], args[w_at]
+            self.unpadded = (*x.shape[-2:], w.shape[-2] if kw.get("w_transposed") else w.shape[-1])
+            return fn(*args, **kw)
+        return wrapped
 
     def _wrap(self, name, fn):
         def wrapped(*args, **kw):
             key = (name, tuple(tuple(a.shape) if a is not None else None for a in args[:3]),
                    args[3] is not None if name == "ditto_diff_matmul" else None,
-                   kw.get("w_transposed", False))
+                   kw.get("w_transposed", False), self.unpadded)
             self.calls[key] = self.calls.get(key, 0) + 1
             self.last[key] = (args, kw)
             return fn(*args, **kw)
@@ -171,6 +185,7 @@ class Capture:
 
     def close(self):
         ops.int8_matmul, ops.diff_encode, ops.ditto_diff_matmul = self.orig
+        ops.int8_act_matmul, ops.ditto_linear_step = self.orig_ops
 
 
 def dense_weights(tree):
@@ -190,7 +205,7 @@ def serve(params, sched, x_T, labels, plan):
     return records, sample, time.perf_counter() - t0
 
 
-def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
+def phase_slice(cap: Capture) -> tuple[dict, dict]:
     g = torch.Generator(device=DEVICE).manual_seed(0)
     t0 = time.perf_counter()
     params = dit.init(g, CFG, device=DEVICE)
@@ -208,7 +223,6 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
     zero_counts()
     per_policy: dict = {}
     walls: dict = {}
-    step_calls_by: dict = {}
     for policy in ("act", "diff", "defo"):
         before = launch_counts()
         calls_before = dict(cap.calls)
@@ -232,7 +246,6 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
             if r["step"] == STEPS - 1:
                 modes[r["mode"]] = modes.get(r["mode"], 0) + 1
         walls[policy] = dict(compiled_s=wall, eager_s=wall_eager, compiled_steps=n_compiled)
-        step_calls_by[policy] = step_calls
         say(f"slice {policy}: compiled == eager bit-identical; wall {wall:.2f} s "
             f"({n_compiled} compiled steps), eager-only {wall_eager:.2f} s; "
             f"launches {per_policy[policy]}; last-step modes {modes}; "
@@ -246,13 +259,13 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
             say(f"slice diff, collect_stats=False: same sample; wall {wall_bare:.2f} s")
         for key, c in sorted(step_calls.items(), key=str):
             say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} y_prev={key[2]} "
-                f"w_transposed={key[3]}")
+                f"w_transposed={key[3]} unpadded (M, K, N) {key[4]}")
     totals = launch_counts()
     say(f"slice launches (act + diff + defo): {totals}")
     missing = [n for n, c in totals.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return totals, walls, step_calls_by
+    return totals, walls
 
 
 # ------------------------------------------------------------------- times
@@ -271,26 +284,31 @@ def median_ms(fn, flush, reps=30, warm=3) -> float:
     return statistics.median(times)
 
 
-def work(name, args, kw) -> tuple[float, float]:
-    """(operations, bytes) the call must do and move on these inputs: each
-    input read once, each output written once; for the diff GEMM only the
-    non-zero tiles and the weight rows they meet."""
+def work(name, args, unpadded) -> tuple[float, float]:
+    """(operations, bytes) the call must do and move at the path's own
+    (M, K, N), before ``ops`` padded it to the 128-tile grid: each input read
+    once, each output written once; for the diff GEMM only the non-zero
+    tiles, at their unpadded extent, and the weight rows they meet."""
+    m, k, n = unpadded
     x = args[0]
-    m, k = x.shape[-2:]
-    bat = x.numel() // (m * k)
+    bat = x.numel() // (x.shape[-2] * x.shape[-1])
     if name == "diff_encode":
-        return 0.0, float(2 * x.numel() + 4 * x.numel() // (128 * 128))
+        tiles = -(-m // 128) * -(-k // 128)
+        return 0.0, float(2 * bat * m * k + 4 * bat * tiles)
     w = args[2] if name == "ditto_diff_matmul" else args[1]
-    n = w.shape[-2] if kw.get("w_transposed", False) else w.shape[-1]
+    w_bat = w.numel() // (w.shape[-2] * w.shape[-1])
     if name == "int8_matmul":
-        return 2.0 * bat * m * n * k, float(x.numel() + w.numel() + 4 * bat * m * n)
+        return 2.0 * bat * m * n * k, float(bat * m * k + w_bat * k * n + 4 * bat * m * n)
     y_prev, cls = args[3], args[4]
-    nz = int((cls != 0).sum())
-    k_tiles = int((cls != 0).any(dim=-2).sum())  # K tiles whose weight rows are needed
-    nbytes = 2 * nz * 128 * 128 + k_tiles * 128 * n + 4 * bat * m * n + 4 * cls.numel()
+    live = (cls != 0).to(torch.int64)
+    rows = (m - 128 * torch.arange(cls.shape[-2], device=cls.device)).clamp(0, 128)
+    cols = (k - 128 * torch.arange(cls.shape[-1], device=cls.device)).clamp(0, 128)
+    x_elems = int((live * rows[:, None] * cols[None, :]).sum())  # Δ elements of live tiles
+    w_rows = int((live.amax(dim=-2) * cols).sum())  # weight rows those tiles meet
+    nbytes = 2 * x_elems + w_rows * n + 4 * bat * m * n + 4 * cls.numel()
     if y_prev is not None:
         nbytes += 4 * bat * m * n
-    return 2.0 * nz * 128 * 128 * n, float(nbytes)
+    return 2.0 * x_elems * n, float(nbytes)
 
 
 def plain(name, args, kw):
@@ -311,10 +329,10 @@ def phase_times(cap: Capture) -> list[dict]:
     rows = []
     for key, (args, kw) in sorted(cap.last.items(), key=str):
         name = key[0]
-        ops_n, nbytes = work(name, args, kw)
+        ops_n, nbytes = work(name, args, key[4])
         t_ops, t_bytes = ops_n / INT8_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
         row = dict(name=name, args=[list(a.shape) if a is not None else None for a in args[:3]],
-                   y_prev=key[2], w_transposed=key[3],
+                   unpadded_mkn=list(key[4]), y_prev=key[2], w_transposed=key[3],
                    ms=median_ms(lambda: real[name](*args, **kw), flush),
                    plain_ms=median_ms(plain(name, args, kw), flush, reps=20),
                    bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -340,7 +358,7 @@ def main() -> int:
     max_err = phase_parity()
     cap = Capture()
     try:
-        totals, walls, step_calls_by = phase_slice(cap)
+        totals, walls = phase_slice(cap)
     finally:
         cap.close()
     rows = phase_times(cap)
@@ -349,22 +367,13 @@ def main() -> int:
     # x (512, 1152) against W (1152, 4608), the path's largest linear
     kernels = []
     for name, k in KERNELS.items():
-        pick = next(r for r in rows if r["name"] == name and r["args"][0] == [512, 1152]
-                    and (name == "diff_encode" or r["args"][-1 if name == "int8_matmul" else 2]
-                         == [1152, 4608]))
+        pick = next(r for r in rows
+                    if r["name"] == name and r["unpadded_mkn"] == [512, 1152, 4608])
         kernels.append(dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                             launches=totals[name], max_abs_err=max_err[name], ms=pick["ms"],
                             plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
                             bound_by=pick["bound_by"], library_ms=pick["library_ms"],
                             shape=pick["args"]))
-    ms_at = {(r["name"], tuple(tuple(a) if a else None for a in r["args"]), r["y_prev"],
-              r["w_transposed"]): r["ms"] for r in rows}
-    for policy, calls in step_calls_by.items():
-        per_kernel: dict = {}
-        for key, c in calls.items():
-            per_kernel[key[0]] = per_kernel.get(key[0], 0.0) + c * ms_at[key]
-        say(f"kernel ms per compiled step, {policy}: "
-            f"{json.dumps(per_kernel)} (sum {sum(per_kernel.values()):.3f} ms)")
     say(f"slice walls: {json.dumps(walls)}")
     say(f"total {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))

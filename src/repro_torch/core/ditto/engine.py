@@ -315,8 +315,7 @@ class DittoEngine:
             modes[name] = m
         return modes
 
-    def record_compiled_step(self, aux: dict[str, dict], *,
-                             modes: dict[str, str] | None = None) -> None:
+    def record_compiled_step(self, aux: dict[str, dict]) -> None:
         """Append records for one compiled step.
 
         ``aux`` maps each layer to (3,) tensors reduced in the step:
@@ -331,9 +330,7 @@ class DittoEngine:
             for r in self.records:
                 base_by_layer.setdefault(r["layer"], r)
             self._compiled_base = (self.compiled_modes(), base_by_layer)
-        base_modes, base_by_layer = self._compiled_base
-        if modes is None:
-            modes = base_modes
+        modes, base_by_layer = self._compiled_base
         keys = [(name, key) for name, a in aux.items() for key in a]
         if not keys:
             return
