@@ -1,6 +1,6 @@
 """Where a compiled denoising step of the PyTorch/CUDA port spends its time.
 
-    python3 benchmarks/torch_step_profile.py [--policy act diff] [--steps 8] [--short 4]
+    python3 benchmarks/torch_step_profile.py [--policy act diff diff-fused] [--steps 8] [--short 4]
 
 Serves DiT-XL/2 at B = 2 (random weights from a seed, adaLN ``mod`` weights
 refilled N(0, 0.02), as chip_smoke.py does) through
@@ -8,8 +8,10 @@ refilled N(0, 0.02), as chip_smoke.py does) through
 DDIM steps. Both calls run the same two eager calibration steps and the
 same fixed costs of a call, and every further step is a compiled one, so
 the difference between the two calls over ``--steps - --short`` is the cost
-of one compiled step. Per policy, with the default ``collect_stats=True``
-plan and with ``collect_stats=False``, it prints:
+of one compiled step. Per run — ``act``, ``diff`` (the two-pass flow),
+``diff-low_bits4`` (its packed-int4 branch) or ``diff-fused`` (the fused
+flow) — with the default ``collect_stats=True`` plan and with
+``collect_stats=False``, it prints:
 
 - ``step_ms``: that difference of the two calls' wall times (host clock,
   each call ends in ``torch.cuda.synchronize()``; median of ``--reps``
@@ -17,7 +19,7 @@ plan and with ``collect_stats=False``, it prints:
 - from ``torch.profiler`` around one more call of each length, the same
   difference of: the device's busy time (its kernels', copies' and fills'
   device time), the device activities, the device time and launches of the
-  port's three kernels and of the top device items, and the top host ops;
+  port's kernels and of the top device items, and the top host ops;
   and the device's idle share against ``step_ms``.
 
 Defo is left out: its modes depend on the timesteps of the calibration
@@ -44,9 +46,15 @@ from repro_torch.core.ditto import DittoPlan  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
-# the port's kernels, by the name of their __global__ function in csrc/
+# the port's kernels, by the name of their __global__ function in csrc/ (the
+# packed-int4 branch runs inside diff_matmul_kernel)
 PORT_KERNELS = {"int8_matmul": "int8_matmul_kernel", "diff_encode": "diff_encode_kernel",
-                "ditto_diff_matmul": "diff_matmul_kernel"}
+                "ditto_diff_matmul": "diff_matmul_kernel",
+                "diff_encode_fused": "diff_encode_fused_kernel",
+                "ditto_fused_matmul": "fused_matmul_kernel"}
+# run name -> (policy, kernel knobs of the plan)
+RUNS = {"act": ("act", {}), "diff": ("diff", {}), "diff-low_bits4": ("diff", dict(low_bits=4)),
+        "diff-fused": ("diff", dict(fused=True))}
 
 
 def serve(inputs, plan: DittoPlan) -> float:
@@ -73,10 +81,11 @@ def profiled(inputs, plan: DittoPlan) -> tuple[dict, dict]:
     return device, host
 
 
-def step_profile(inputs, policy: str, collect_stats: bool, steps: int, short: int,
+def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
                  reps: int) -> dict:
-    long_plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats)
-    short_plan = DittoPlan(steps=short, policy=policy, collect_stats=collect_stats)
+    policy, knobs = RUNS[run]
+    long_plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats, **knobs)
+    short_plan = DittoPlan(steps=short, policy=policy, collect_stats=collect_stats, **knobs)
     serve(inputs, short_plan)  # warm-up
     walls = {steps: [], short: []}
     for _ in range(reps):
@@ -97,7 +106,7 @@ def step_profile(inputs, policy: str, collect_stats: bool, steps: int, short: in
     host = {k: (host_l.get(k, 0.0) - host_s.get(k, 0.0)) / d
             for k in host_l.keys() | host_s.keys()}
     return {
-        "policy": policy, "collect_stats": collect_stats, "steps": [steps, short],
+        "run": run, "collect_stats": collect_stats, "steps": [steps, short],
         "step_ms": step_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_ms,
         "device_activities_per_step": sum(n for _, n in per_step.values()),
@@ -111,7 +120,8 @@ def step_profile(inputs, policy: str, collect_stats: bool, steps: int, short: in
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--policy", nargs="+", default=["act", "diff"], choices=("act", "diff"))
+    ap.add_argument("--policy", nargs="+", default=["act", "diff", "diff-fused"],
+                    choices=tuple(RUNS))
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--short", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
@@ -128,9 +138,9 @@ def main() -> int:
     labels = torch.tensor([207, 360], device="cuda")
     inputs = (params, dit.DIT_XL2, diffusion.linear_schedule(1000), x_T, labels)
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
-    for policy in args.policy:
+    for run in args.policy:
         for collect_stats in (True, False):
-            print(json.dumps(step_profile(inputs, policy, collect_stats, args.steps, args.short,
+            print(json.dumps(step_profile(inputs, run, collect_stats, args.steps, args.short,
                                           args.reps)), flush=True)
     return 0
 

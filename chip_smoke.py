@@ -9,13 +9,20 @@ Phases (any failure raises and the script exits non-zero):
 2. parity  — each kernel against its plain PyTorch version on the card,
              bit for bit (``torch.equal``), at every DiT-XL/2 main-path
              shape at B = 2, over zero / low / boundary / full Δ mixes,
-             with y_prev given and absent.
+             with y_prev given and absent: the two-pass kernels (the diff
+             GEMM at ``low_bits`` 8 and 4) and the fused pair (the Δ-cache
+             compared on the tiles whose class gates it in; the fused GEMM
+             also against the two-pass plain version).
 3. slice   — ``serve_records`` at DiT-XL/2 full width (random weights from
              a seed), 2 requests, 20 DDIM steps, under policy act, diff and
-             defo. Each compiled sample must equal the eager-only sample
-             of the same inputs bit for bit (the eager pass computes its
-             products with exact float64 matmuls, no kernel), be finite,
-             and every kernel must have launched during these runs.
+             defo, then under (diff, ``low_bits=4``), (diff, ``fused``) and
+             (defo, ``low_bits=4``, ``fused``). Each compiled sample must
+             equal the eager-only sample of its policy bit for bit (the
+             eager pass computes its products with exact float64 matmuls,
+             no kernel), be finite, the last three runs' tile-class
+             histograms must equal those of the ``low_bits=8`` run of the
+             same policy, and every kernel must have launched during these
+             runs.
 4. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
@@ -44,6 +51,7 @@ from repro_torch.core.ditto import DittoPlan  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
 from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
+from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
@@ -55,14 +63,35 @@ B = 2
 DEVICE = "cuda"
 CFG = dit.DIT_XL2
 
+DIFF4 = "ditto_diff_matmul[low_bits=4]"
+# name -> the module and attribute of its launch count, its source, the TPU
+# kernel it replaces and the wrapper that launches it
 KERNELS = {
-    "int8_matmul": dict(module=k_int8, source="src/repro_torch/csrc/int8_matmul.cu",
+    "int8_matmul": dict(module=k_int8, counter="launches",
+                        source="src/repro_torch/csrc/int8_matmul.cu",
                         replaces="src/repro/kernels/int8_matmul.py:73"),
-    "diff_encode": dict(module=k_encode, source="src/repro_torch/csrc/diff_encode.cu",
+    "diff_encode": dict(module=k_encode, counter="launches",
+                        source="src/repro_torch/csrc/diff_encode.cu",
                         replaces="src/repro/kernels/diff_encode.py:75"),
-    "ditto_diff_matmul": dict(module=k_diff, source="src/repro_torch/csrc/ditto_diff_matmul.cu",
+    "ditto_diff_matmul": dict(module=k_diff, counter="launches",
+                              source="src/repro_torch/csrc/ditto_diff_matmul.cu",
                               replaces="src/repro/kernels/ditto_diff_matmul.py:213"),
+    DIFF4: dict(module=k_diff, counter="launches_int4",
+                source="src/repro_torch/csrc/ditto_diff_matmul.cu",
+                replaces="src/repro/kernels/ditto_diff_matmul.py:213"),
+    "diff_encode_fused": dict(module=k_fused, counter="encode_launches",
+                              source="src/repro_torch/csrc/diff_encode_fused.cu",
+                              replaces="src/repro/kernels/fused_step.py:123"),
+    "ditto_fused_matmul": dict(module=k_fused, counter="matmul_launches",
+                               source="src/repro_torch/csrc/ditto_fused_matmul.cu",
+                               replaces="src/repro/kernels/fused_step.py:312"),
 }
+# the slice run whose compiled steps launch each kernel on every layer of its kind
+STEP_RUN = {"int8_matmul": "act", "diff_encode": "diff", "ditto_diff_matmul": "diff",
+            DIFF4: "diff low_bits=4", "diff_encode_fused": "diff fused=True",
+            "ditto_fused_matmul": "diff fused=True"}
+# the argument that carries y_prev, per GEMM wrapper
+Y_PREV_AT = {"ditto_diff_matmul": 3, DIFF4: 3, "ditto_fused_matmul": 4}
 
 
 def say(*a):
@@ -70,12 +99,12 @@ def say(*a):
 
 
 def launch_counts() -> dict:
-    return {name: k["module"].launches for name, k in KERNELS.items()}
+    return {name: getattr(k["module"], k["counter"]) for name, k in KERNELS.items()}
 
 
 def zero_counts() -> None:
     for k in KERNELS.values():
-        k["module"].launches = 0
+        setattr(k["module"], k["counter"], 0)
 
 
 # ------------------------------------------------------------------ parity
@@ -119,7 +148,9 @@ def phase_parity() -> dict:
     def hold(name, got, want):
         nonlocal checks
         torch.cuda.synchronize()
-        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item() if got.numel() else 0
         max_err[name] = max(max_err[name], err)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} disagrees with its plain version (max |err| {err})")
@@ -137,32 +168,51 @@ def phase_parity() -> dict:
             hold("diff_encode", cls, ref.diff_encode_ref(x_t, x_p, (128, 128)))
             y_prev = torch.randint(-2**24, 2**24, lead + (m, n), generator=g, device=DEVICE,
                                    dtype=torch.int32)
+            cls_f, dc, dh = k_fused.diff_encode_fused(x_t, x_p)
+            want_c, want_dc, want_dh = ref.diff_encode_fused_ref(x_t, x_p, (128, 128))
+            hold("diff_encode_fused", cls_f, want_c)
+            live = ref.tile_mask(cls_f, (128, 64), lambda c: c >= 1)
+            full = ref.tile_mask(cls_f, (128, 128), lambda c: c == 2)
+            hold("diff_encode_fused", dc[live], want_dc[live])  # the gated-in tiles only
+            hold("diff_encode_fused", dh[full], want_dh[full])
+            bare = ref.ditto_fused_matmul_ref(w, dc, dh, cls_f, w_transposed=wt)
             for yp in (y_prev, None):
+                want = ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=wt)
                 hold("ditto_diff_matmul",
-                     k_diff.ditto_diff_matmul(x_t, x_p, w, yp, cls, w_transposed=wt),
-                     ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=wt))
+                     k_diff.ditto_diff_matmul(x_t, x_p, w, yp, cls, w_transposed=wt), want)
+                hold(DIFF4, k_diff.ditto_diff_matmul(x_t, x_p, w, yp, cls, low_bits=4,
+                                                     w_transposed=wt),
+                     ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=wt,
+                                               low_bits=4))
+                got = k_fused.ditto_fused_matmul(w, dc, dh, cls_f, yp, w_transposed=wt)
+                hold("ditto_fused_matmul", got, bare if yp is None else bare + yp)
+                hold("ditto_fused_matmul", got, want)  # and the two-pass function
         say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt}")
     say(f"parity: {checks} checks bit-exact, max |err| {max_err}")
     return max_err
 
 
 # ------------------------------------------------------------------- slice
+WRAPPERS = ("int8_matmul", "diff_encode", "ditto_diff_matmul", "diff_encode_fused",
+            "ditto_fused_matmul")
+
+
 class Capture:
     """Wraps the kernel entry points that ``ops`` calls: counts calls per
     (kernel, shape) and keeps the last call's arguments at each shape, so
-    phase 4 times every kernel on the inputs the main path gave it. It also
-    wraps the two ``ops`` functions the compiled pass calls, to note each
-    call's (M, K, N) before ``ops`` pads it to the 128-tile grid."""
+    phase 4 times every kernel on the inputs the main path gave it (a diff
+    GEMM call with ``low_bits=4`` counts as its own kernel). It also wraps
+    the two ``ops`` functions the compiled pass calls, to note each call's
+    (M, K, N) before ``ops`` pads it to the 128-tile grid."""
 
     def __init__(self):
         self.calls: dict = {}
         self.last: dict = {}
         self.unpadded = None
-        self.orig = (ops.int8_matmul, ops.diff_encode, ops.ditto_diff_matmul)
+        self.orig = {name: getattr(ops, name) for name in WRAPPERS}
         self.orig_ops = (ops.int8_act_matmul, ops.ditto_linear_step)
-        ops.int8_matmul = self._wrap("int8_matmul", self.orig[0])
-        ops.diff_encode = self._wrap("diff_encode", self.orig[1])
-        ops.ditto_diff_matmul = self._wrap("ditto_diff_matmul", self.orig[2])
+        for name, fn in self.orig.items():
+            setattr(ops, name, self._wrap(name, fn))
         ops.int8_act_matmul = self._note_unpadded(self.orig_ops[0], w_at=1)
         ops.ditto_linear_step = self._note_unpadded(self.orig_ops[1], w_at=2)
 
@@ -173,10 +223,11 @@ class Capture:
             return fn(*args, **kw)
         return wrapped
 
-    def _wrap(self, name, fn):
+    def _wrap(self, wrapper, fn):
         def wrapped(*args, **kw):
+            name = DIFF4 if kw.get("low_bits") == 4 else wrapper
             key = (name, tuple(tuple(a.shape) if a is not None else None for a in args[:3]),
-                   args[3] is not None if name == "ditto_diff_matmul" else None,
+                   args[Y_PREV_AT[name]] is not None if name in Y_PREV_AT else None,
                    kw.get("w_transposed", False), self.unpadded)
             self.calls[key] = self.calls.get(key, 0) + 1
             self.last[key] = (args, kw)
@@ -184,7 +235,8 @@ class Capture:
         return wrapped
 
     def close(self):
-        ops.int8_matmul, ops.diff_encode, ops.ditto_diff_matmul = self.orig
+        for name, fn in self.orig.items():
+            setattr(ops, name, fn)
         ops.int8_act_matmul, ops.ditto_linear_step = self.orig_ops
 
 
@@ -205,7 +257,23 @@ def serve(params, sched, x_T, labels, plan):
     return records, sample, time.perf_counter() - t0
 
 
-def phase_slice(cap: Capture) -> tuple[dict, dict]:
+def tile_hists(records) -> dict:
+    """(layer, step) -> the tile-class histogram of every compiled diff record."""
+    return {(r["layer"], r["step"]): r["tile_hist"] for r in records if "tile_hist" in r}
+
+
+def step_calls(calls_after: dict, calls_before: dict, n_compiled: int) -> dict:
+    """Calls per compiled step of each (kernel, shape) key over one run,
+    from Capture.calls before and after it; printed."""
+    out = {key: (c - calls_before.get(key, 0)) / n_compiled
+           for key, c in calls_after.items() if c != calls_before.get(key, 0)}
+    for key, c in sorted(out.items(), key=str):
+        say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} y_prev={key[2]} "
+            f"w_transposed={key[3]} unpadded (M, K, N) {key[4]}")
+    return out
+
+
+def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
     g = torch.Generator(device=DEVICE).manual_seed(0)
     t0 = time.perf_counter()
     params = dit.init(g, CFG, device=DEVICE)
@@ -223,6 +291,9 @@ def phase_slice(cap: Capture) -> tuple[dict, dict]:
     zero_counts()
     per_policy: dict = {}
     walls: dict = {}
+    eager_by_policy: dict = {}
+    hists_by_policy: dict = {}
+    steps_by_run: dict = {}
     for policy in ("act", "diff", "defo"):
         before = launch_counts()
         calls_before = dict(cap.calls)
@@ -230,8 +301,7 @@ def phase_slice(cap: Capture) -> tuple[dict, dict]:
         after = launch_counts()
         per_policy[policy] = {n: after[n] - before[n] for n in after}
         n_compiled = len({r["step"] for r in recs if r.get("compiled")})
-        step_calls = {key: (c - calls_before.get(key, 0)) / n_compiled
-                      for key, c in cap.calls.items() if c != calls_before.get(key, 0)}
+        calls_after = dict(cap.calls)
         _, eager, wall_eager = serve(params, sched, x_T, labels,
                                      DittoPlan(steps=STEPS, policy=policy, compiled=False))
         if launch_counts() != after:
@@ -241,6 +311,7 @@ def phase_slice(cap: Capture) -> tuple[dict, dict]:
         if not torch.equal(sample, eager):
             diff = (sample - eager).abs().max().item()
             raise AssertionError(f"{policy}: compiled sample differs from eager (max {diff})")
+        eager_by_policy[policy], hists_by_policy[policy] = eager, tile_hists(recs)
         modes = {}
         for r in recs:
             if r["step"] == STEPS - 1:
@@ -257,15 +328,40 @@ def phase_slice(cap: Capture) -> tuple[dict, dict]:
                 raise AssertionError("collect_stats=False changed the diff sample")
             walls["diff_no_stats"] = dict(compiled_s=wall_bare, compiled_steps=n_compiled)
             say(f"slice diff, collect_stats=False: same sample; wall {wall_bare:.2f} s")
-        for key, c in sorted(step_calls.items(), key=str):
-            say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} y_prev={key[2]} "
-                f"w_transposed={key[3]} unpadded (M, K, N) {key[4]}")
+        steps_by_run[policy] = step_calls(calls_after, calls_before, n_compiled)
+    # the packed-int4 branch and the fused flow, each held to the eager
+    # sample and the two-pass tile histograms of its policy
+    for policy, kw in (("diff", dict(low_bits=4)), ("diff", dict(fused=True)),
+                       ("defo", dict(low_bits=4, fused=True))):
+        label = policy + "".join(f" {k}={v}" for k, v in kw.items())
+        before = launch_counts()
+        calls_before = dict(cap.calls)
+        recs, sample, wall = serve(params, sched, x_T, labels,
+                                   DittoPlan(steps=STEPS, policy=policy, **kw))
+        after = launch_counts()
+        per_policy[label] = {n: after[n] - before[n] for n in after}
+        n_compiled = len({r["step"] for r in recs if r.get("compiled")})
+        if sample.shape != x_T.shape or not torch.isfinite(sample).all():
+            raise AssertionError(f"{label}: sample is not finite or has the wrong shape")
+        if not torch.equal(sample, eager_by_policy[policy]):
+            diff = (sample - eager_by_policy[policy]).abs().max().item()
+            raise AssertionError(f"{label}: compiled sample differs from eager (max {diff})")
+        hists = tile_hists(recs)
+        if hists != hists_by_policy[policy]:
+            raise AssertionError(f"{label}: tile-class histograms differ from the "
+                                 f"low_bits=8 two-pass run")
+        tiles = [sum(h[c] for h in hists.values()) for c in range(3)]
+        walls[label] = dict(compiled_s=wall, compiled_steps=n_compiled)
+        say(f"slice {label}: compiled == eager bit-identical, tile histograms == two-pass; "
+            f"wall {wall:.2f} s ({n_compiled} compiled steps); launches {per_policy[label]}; "
+            f"tiles over the compiled steps (zero, low, full) {tiles}")
+        steps_by_run[label] = step_calls(cap.calls, calls_before, n_compiled)
     totals = launch_counts()
-    say(f"slice launches (act + diff + defo): {totals}")
+    say(f"slice launches (all runs): {totals}")
     missing = [n for n, c in totals.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return totals, walls
+    return totals, walls, steps_by_run
 
 
 # ------------------------------------------------------------------- times
@@ -287,46 +383,69 @@ def median_ms(fn, flush, reps=30, warm=3) -> float:
 def work(name, args, unpadded) -> tuple[float, float]:
     """(operations, bytes) the call must do and move at the path's own
     (M, K, N), before ``ops`` padded it to the 128-tile grid: each input read
-    once, each output written once; for the diff GEMM only the non-zero
-    tiles, at their unpadded extent, and the weight rows they meet."""
+    once, each output written once. The diff GEMMs count only the non-zero
+    tiles, at their unpadded extent, and the weight rows they meet; the
+    fused pair counts the Δ-cache planes on the tiles whose class gates
+    them in (``dc``, half a byte a Δ: class >= 1; ``dh``: class 2)."""
     m, k, n = unpadded
-    x = args[0]
+    x = args[2] if name == "ditto_fused_matmul" else args[0]
     bat = x.numel() // (x.shape[-2] * x.shape[-1])
-    if name == "diff_encode":
-        tiles = -(-m // 128) * -(-k // 128)
-        return 0.0, float(2 * bat * m * k + 4 * bat * tiles)
-    w = args[2] if name == "ditto_diff_matmul" else args[1]
+    if name in ("diff_encode", "diff_encode_fused"):
+        cls = ref.diff_encode_ref(args[0], args[1], (128, 128))
+        nbytes = 2 * bat * m * k + 4 * cls.numel()
+        if name == "diff_encode_fused":
+            nbytes += tile_elems(cls >= 1, m, k) // 2 + tile_elems(cls == 2, m, k)
+        return 0.0, float(nbytes)
+    w = args[1] if name == "int8_matmul" else args[0] if name == "ditto_fused_matmul" else args[2]
     w_bat = w.numel() // (w.shape[-2] * w.shape[-1])
     if name == "int8_matmul":
         return 2.0 * bat * m * n * k, float(bat * m * k + w_bat * k * n + 4 * bat * m * n)
-    y_prev, cls = args[3], args[4]
-    live = (cls != 0).to(torch.int64)
-    rows = (m - 128 * torch.arange(cls.shape[-2], device=cls.device)).clamp(0, 128)
+    cls = args[3] if name == "ditto_fused_matmul" else args[4]
+    x_elems = tile_elems(cls != 0, m, k)  # Δ elements of live tiles
     cols = (k - 128 * torch.arange(cls.shape[-1], device=cls.device)).clamp(0, 128)
-    x_elems = int((live * rows[:, None] * cols[None, :]).sum())  # Δ elements of live tiles
-    w_rows = int((live.amax(dim=-2) * cols).sum())  # weight rows those tiles meet
-    nbytes = 2 * x_elems + w_rows * n + 4 * bat * m * n + 4 * cls.numel()
-    if y_prev is not None:
+    w_rows = int(((cls != 0).to(torch.int64).amax(dim=-2) * cols).sum())  # weight rows met
+    if name == "ditto_fused_matmul":
+        x_bytes = x_elems // 2 + tile_elems(cls == 2, m, k)  # dc, and dh of class-2 tiles
+    else:
+        x_bytes = 2 * x_elems  # x_t and x_prev
+    nbytes = x_bytes + w_rows * n + 4 * bat * m * n + 4 * cls.numel()
+    if args[Y_PREV_AT[name]] is not None:
         nbytes += 4 * bat * m * n
     return 2.0 * x_elems * n, float(nbytes)
 
 
+def tile_elems(pred: torch.Tensor, m: int, k: int) -> int:
+    """Elements of the tiles where ``pred`` holds, at their unpadded extent."""
+    rows = (m - 128 * torch.arange(pred.shape[-2], device=pred.device)).clamp(0, 128)
+    cols = (k - 128 * torch.arange(pred.shape[-1], device=pred.device)).clamp(0, 128)
+    return int((pred.to(torch.int64) * rows[:, None] * cols[None, :]).sum())
+
+
 def plain(name, args, kw):
+    wt = kw.get("w_transposed", False)
     if name == "int8_matmul":
-        return lambda: ref.int8_matmul_ref(*args[:2], w_transposed=kw.get("w_transposed", False))
+        return lambda: ref.int8_matmul_ref(*args[:2], w_transposed=wt)
     if name == "diff_encode":
         return lambda: ref.diff_encode_ref(*args[:2], (128, 128))
-    return lambda: ref.ditto_diff_matmul_ref(*args[:5], (128, 128),
-                                             w_transposed=kw.get("w_transposed", False))
+    if name == "diff_encode_fused":
+        return lambda: ref.diff_encode_fused_ref(*args[:2], (128, 128))
+    if name == "ditto_fused_matmul":  # the reference's split form: y_prev added after
+        def bare():
+            return ref.ditto_fused_matmul_ref(*args[:4], w_transposed=wt)
+        return bare if args[4] is None else lambda: bare() + args[4]
+    return lambda: ref.ditto_diff_matmul_ref(*args[:5], (128, 128), w_transposed=wt,
+                                             low_bits=kw.get("low_bits", 8))
 
 
-def phase_times(cap: Capture) -> list[dict]:
+def phase_times(cap: Capture) -> tuple[list[dict], dict]:
+    """One row per (kernel, shape) key the slice called, and each key's bound."""
     # 1 GiB: clearing it evicts the 50 MB L2 and keeps the card busy for
     # ~0.3 ms, longer than the host takes to enqueue the timed launch, so
     # the events time the kernel and not the host's launch latency
     flush = torch.empty(2**30, dtype=torch.uint8, device=DEVICE)
-    real = dict(zip(("int8_matmul", "diff_encode", "ditto_diff_matmul"), cap.orig))
+    real = dict(cap.orig, **{DIFF4: cap.orig["ditto_diff_matmul"]})
     rows = []
+    bounds = {}
     for key, (args, kw) in sorted(cap.last.items(), key=str):
         name = key[0]
         ops_n, nbytes = work(name, args, key[4])
@@ -341,8 +460,9 @@ def phase_times(cap: Capture) -> list[dict]:
         if name == "int8_matmul" and x.dim() == 2 and not kw.get("w_transposed", False):
             row["library_ms"] = median_ms(lambda: torch._int_mm(x, w), flush)
         rows.append(row)
+        bounds[key] = row["bound_ms"]
         say("time " + json.dumps(row))
-    return rows
+    return rows, bounds
 
 
 # -------------------------------------------------------------------- main
@@ -358,10 +478,16 @@ def main() -> int:
     max_err = phase_parity()
     cap = Capture()
     try:
-        totals, walls = phase_slice(cap)
+        totals, walls, steps_by_run = phase_slice(cap)
     finally:
         cap.close()
-    rows = phase_times(cap)
+    rows, bounds = phase_times(cap)
+    # the least device time a compiled step needs for each kernel's calls,
+    # in the run that launches it on every layer of its kind
+    step_bound = {name: sum(c * bounds[key] for key, c in steps_by_run[run].items()
+                            if key[0] == name)
+                  for name, run in STEP_RUN.items()}
+    say(f"bound per compiled step (ms): {json.dumps(step_bound)}")
 
     # the kernels line reports each kernel at the MLP up-projection (wi):
     # x (512, 1152) against W (1152, 4608), the path's largest linear

@@ -8,8 +8,12 @@ run through the kernels:
   act   layers (and spatial ones, whose eager branch computes the direct
         GEMM) launch ``int8_matmul``;
   diff  layers launch ``diff_encode`` then ``ditto_diff_matmul``, so zero
-        tiles are skipped on the card, and the measured per-step
-        tile-class histogram (``tile_hist``) feeds the pricing.
+        tiles are skipped on the card (with ``plan.low_bits=4``, class-1
+        tiles run through its packed-int4 branch); with ``plan.fused`` they
+        launch ``diff_encode_fused`` then ``ditto_fused_matmul``, which
+        reads the Δ-cache instead of the raw activations. Every flow gives
+        the same int32 result and the same class map, and the measured
+        per-step tile-class histogram (``tile_hist``) feeds the pricing.
 
 Nothing is traced: PyTorch runs eagerly, and "compiled" names the pass
 that launches the hand-written kernels. Where the reference scanned the

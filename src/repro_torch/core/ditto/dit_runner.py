@@ -10,9 +10,10 @@ and the same fp32 glue.
 steps until the engine is calibrated (>= 1 step; for Defo policies, until
 the step-2 decision), then hands the remaining steps to the compiled step,
 in which each layer's mode is fixed: act layers launch ``int8_matmul``,
-diff layers ``diff_encode`` -> ``ditto_diff_matmul``. Not in this slice:
-the reference's runner cache, batch buckets, plan schedules and watchdog
-(ROADMAP.md, queue 1).
+diff layers ``diff_encode`` -> ``ditto_diff_matmul`` (or, with
+``plan.fused``, ``diff_encode_fused`` -> ``ditto_fused_matmul``). Not in
+this slice: the reference's runner cache, batch buckets, plan schedules
+and watchdog (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-// Shared int8 tensor-core tile machinery for int8_matmul.cu and
-// ditto_diff_matmul.cu (diff_encode.cu takes only byte_s8).
+// Shared int8 tensor-core tile machinery of the GEMM kernels
+// (int8_matmul.cu, ditto_diff_matmul.cu, ditto_fused_matmul.cu; the encode
+// kernels take only byte_s8).
 //
 // One thread block computes one 128 x 128 int32 output tile with
 // mma.sync.m16n8k32 (s8 x s8 -> s32). 256 threads = 8 warps laid out
@@ -28,6 +29,24 @@ constexpr int PITCH = BK + 16;  // smem row pitch in bytes
 
 __device__ __forceinline__ int byte_s8(uint32_t w, int shift) {
   return int32_t(w << (24 - shift)) >> 24;  // sign-extend the byte at bit `shift`
+}
+
+// Split four differences d[0..3], each in [-254, 254], exactly into two
+// int8 planes one lane a byte: lo = clamp(d, -127, 127) and hi = d - lo
+// (|hi| <= 127). Returns nonzero iff any hi lane is nonzero.
+__device__ __forceinline__ uint32_t split_delta4(const int (&d)[4], uint32_t& lo,
+                                                 uint32_t& hi) {
+  uint32_t any = 0;
+  lo = hi = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = max(-127, min(127, d[i]));
+    const int h = d[i] - l;
+    any |= uint32_t(h);
+    lo |= (uint32_t(l) & 0xffu) << (8 * i);
+    hi |= (uint32_t(h) & 0xffu) << (8 * i);
+  }
+  return any;
 }
 
 struct Frag {

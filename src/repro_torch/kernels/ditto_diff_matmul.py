@@ -3,10 +3,9 @@
     y_t = y_prev + (x_t - x_prev) @ W        (all-int32 exact)
 
 Replaces ``src/repro/kernels/ditto_diff_matmul.py: ditto_diff_matmul``
-(Pallas body ``_kernel`` with ``_dot_w``) for ``low_bits=8``, with and
-without ``y_prev`` and with W as (K, N) or, ``w_transposed``, as (N, K).
-The ``low_bits=4`` branch (``_w_lane_pair`` and the int4 helpers) is not
-ported yet and raises ``NotImplementedError`` (ROADMAP.md, queue 2).
+(Pallas body ``_kernel`` with ``_dot_w`` and, for ``low_bits=4``,
+``_w_lane_pair`` over the ``int4_pack`` helpers), with and without
+``y_prev`` and with W as (K, N) or, ``w_transposed``, as (N, K).
 
 Kernel (``csrc/ditto_diff_matmul.cu`` over ``csrc/tile_mma.cuh``): one
 256-thread block per 128 x 128 output tile, K staged through shared memory
@@ -21,6 +20,15 @@ tiles). A class-0 tile issues no load and no product. A leading batch dim
 runs as the grid's z axis: the two attention sub-operations of all
 (batch x heads) elements are one launch each.
 
+``low_bits=4``: a class-1 chunk is staged as packed int4 x 2 words
+(``csrc/int4_pack.cuh``), 32 bytes a row instead of 64, and unpacked into
+the ``mma.sync`` operand as its fragments load; class-2 chunks keep the
+lo/hi split. The H100 has no int4 x int8 tensor-core product, so, as on
+the reference's v5e, the packed word is a storage format: it halves the
+shared-memory bytes of a low chunk, not its multiplies. The class-1
+verdict keeps every lane in the exact [-8, 7] range, so both branches give
+the same int32 result. These launches count in :data:`launches_int4`.
+
 What bounds it on the H100: as for int8_matmul, bytes at the B = 2 shapes
 (the int32 y_prev read and y write dominate), and it does less work the
 more class-0 tiles the data has. This first version stages synchronously
@@ -28,8 +36,9 @@ and uses ``mma.sync``; the measured time sits in PERF.md beside its bound.
 
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.ditto_linear_step`
 zero-pads). On a CPU tensor the wrapper runs the plain version, which
-drops class-0 tiles exactly as the kernel skips them; on a CUDA tensor it
-launches the kernel or raises.
+drops class-0 tiles exactly as the kernel skips it (and packs class-1
+tiles for ``low_bits=4``); on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -41,10 +50,12 @@ import torch
 from . import common
 from .ref import ditto_diff_matmul_ref
 
-#: Kernel launches so far (chip_smoke.py zeroes it and reads it around a run).
+#: Kernel launches so far, ``low_bits=8`` and ``low_bits=4`` apart
+#: (chip_smoke.py zeroes them and reads them around a run).
 launches = 0
+launches_int4 = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor,
@@ -56,12 +67,8 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
     ``w_transposed``; y_prev: (..., M, N) int32 or None (the bare diff
     contribution); classes: (..., M/bm, K/bk) int32 from diff_encode.
     Returns y_t (..., M, N) int32."""
-    global launches
+    global launches, launches_int4
     common.validate_low_bits(low_bits)
-    if low_bits == 4:
-        raise NotImplementedError(
-            "ditto_diff_matmul: the low_bits=4 (packed-int4) branch is not ported yet "
-            "(ROADMAP.md, queue 2: the low_bits=4 branch of ditto_diff_matmul)")
     m, k = x_t.shape[-2:]
     n, k2 = w_q.shape[-2:] if w_transposed else w_q.shape[-2:][::-1]
     lead = x_t.shape[:-2]
@@ -73,9 +80,12 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
             f"{tuple(w_q.shape)} (w_transposed={w_transposed}), classes "
             f"{tuple(classes.shape)}, y_prev "
             f"{None if y_prev is None else tuple(y_prev.shape)} for tiles ({bm}, {bn}, {bk})")
+    if low_bits == 4 and bk % 2:
+        raise ValueError(f"ditto_diff_matmul: low_bits=4 pairs K lanes, so bk must be even, "
+                         f"got {bk}")
     if x_t.device.type == "cpu":
         return ditto_diff_matmul_ref(x_t, x_prev, w_q, y_prev, classes, (bm, bk),
-                                     w_transposed=w_transposed)
+                                     w_transposed=w_transposed, low_bits=low_bits)
     if (bm, bn, bk) != (128, 128, 128):
         raise ValueError(f"ditto_diff_matmul: the CUDA kernel tiles by 128, got ({bm}, {bn}, {bk})")
     if w_q.shape[:-2] != lead:
@@ -92,7 +102,10 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
     rc = fn(x_t.data_ptr(), x_prev.data_ptr(), w_q.data_ptr(),
             None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
             out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
-            (m // bm) * (k // bk), int(w_transposed), common.stream_ptr(x_t))
+            (m // bm) * (k // bk), int(w_transposed), low_bits, common.stream_ptr(x_t))
     common.launch_check("ditto_diff_matmul", rc)
-    launches += 1
+    if low_bits == 4:
+        launches_int4 += 1
+    else:
+        launches += 1
     return out

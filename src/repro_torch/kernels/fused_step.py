@@ -1,0 +1,185 @@
+"""Fused-flow diff step, for Hopper: one encode pass that also writes the
+Δ-cache, then a GEMM that reads the cache instead of the raw activations.
+
+Mirror of ``src/repro/kernels/fused_step.py``.
+
+:func:`diff_encode_fused` replaces ``diff_encode_fused`` (Pallas body
+``_encode_kernel``). One pass over (x_t, x_prev) gives the tile classes
+and the two-plane Δ-cache, exact for every Δ:
+
+* ``dc`` (..., M, K/2) int8 — Δ's low nibbles, two int4 K lanes a byte
+  (``int4_pack`` layout); on class-1 tiles this IS Δ;
+* ``dh`` (..., M, K) int8 — (Δ - lo) >> 4, so that Δ = lo + (dh << 4)
+  (|Δ| <= 254, so dh is in [-16, 16]).
+
+Writes are gated by class: class-0 tiles write neither plane, class-1
+tiles skip ``dh``. Kernel (``csrc/diff_encode_fused.cu``): one 256-thread
+block per 128 x 128 tile, which keeps its 64 elements a thread of both
+operands in registers while it reduces max|Δ| and then writes the planes
+its class needs. It moves 2 bytes a Δ in and up to 1.5 out, so its bound
+is bytes.
+
+:func:`ditto_fused_matmul` replaces ``ditto_fused_matmul`` (Pallas body
+``_fused_kernel``). Kernel (``csrc/ditto_fused_matmul.cu``): one 256-thread
+block per 128 x 128 output tile that branches on the class of each K tile:
+class 0 loads nothing, class 1 loads the 32-byte-a-row ``dc`` chunk and W
+and multiplies the unpacked lanes, class 2 loads ``dc``, ``dh`` and W,
+rebuilds Δ while staging and splits it exactly into int8 lo / hi planes
+(the two-pass kernel's split) into one accumulator. Where the reference
+remaps skipped blocks through :func:`hold_maps` so that the TPU pipeline
+elides their copies, a Hopper block simply does not issue the load. The
+reference adds y_prev after its kernel; here y_prev, when given, is added
+in the kernel's store of the output tile, which saves a full int32 read
+and write of the output, and the int32 result is the same. With
+``y_prev=None`` the wrapper returns the bare contribution. At the B = 2
+shapes the int32 output dominates the bytes, so its bound is bytes.
+
+:func:`hold_maps` is the reference's index-table construction as a plain
+function; nothing on the CUDA path uses it. ``kernels.dma_model`` replays
+it to count the TPU's copies.
+
+On a CPU tensor each wrapper runs its plain version (``kernels.ref``); on
+a CUDA tensor it launches the kernel or raises. Dims must be multiples of
+128 (:func:`repro_torch.kernels.ops.ditto_linear_step` zero-pads); a
+leading batch dim runs as the grid's z axis.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import common
+from .ref import diff_encode_fused_ref, ditto_fused_matmul_ref
+
+__all__ = ["diff_encode_fused", "ditto_fused_matmul", "hold_maps"]
+
+#: Kernel launches so far, per kernel (chip_smoke.py zeroes them and reads
+#: them around a run).
+encode_launches = 0
+matmul_launches = 0
+
+_ENCODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_int,
+                                                                     ctypes.c_void_p]
+_MATMUL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int,
+                                                                    ctypes.c_void_p]
+
+
+def _check_even(name: str, bk: int) -> None:
+    if bk % 2:
+        raise ValueError(f"{name}: the Δ-cache pairs K lanes, so bk must be even, got {bk}")
+
+
+def diff_encode_fused(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
+                      bk: int = 128) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x_*: (..., M, K) int8 -> (classes (..., M/bm, K/bk) int32,
+    dc (..., M, K/2) int8, dh (..., M, K) int8). The cache planes hold their
+    values only on the tiles whose class gates them in (``dc``: class >= 1,
+    ``dh``: class 2); elsewhere the kernel leaves them unwritten."""
+    global encode_launches
+    m, k = x_t.shape[-2:]
+    if x_prev.shape != x_t.shape or m % bm or k % bk:
+        raise ValueError(f"diff_encode_fused: shapes {tuple(x_t.shape)}, "
+                         f"{tuple(x_prev.shape)} do not tile by ({bm}, {bk})")
+    _check_even("diff_encode_fused", bk)
+    if x_t.device.type == "cpu":
+        return diff_encode_fused_ref(x_t, x_prev, (bm, bk))
+    if (bm, bk) != (128, 128):
+        raise ValueError(f"diff_encode_fused: the CUDA kernel tiles by 128, got ({bm}, {bk})")
+    common.check_cuda_operand("diff_encode_fused x_t", x_t, torch.int8)
+    common.check_cuda_operand("diff_encode_fused x_prev", x_prev, torch.int8)
+    lead = x_t.shape[:-2]
+    classes = torch.empty(lead + (m // bm, k // bk), dtype=torch.int32, device=x_t.device)
+    dc = torch.empty(lead + (m, k // 2), dtype=torch.int8, device=x_t.device)
+    dh = torch.empty(lead + (m, k), dtype=torch.int8, device=x_t.device)
+    fn = common.cuda_fn("ditto_diff_encode_fused", _ENCODE_ARGTYPES)
+    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), classes.data_ptr(), dc.data_ptr(),
+            dh.data_ptr(), math.prod(lead), m, k, m * k, (m // bm) * (k // bk),
+            common.LOW_BIT_MAX, common.stream_ptr(x_t))
+    common.launch_check("diff_encode_fused", rc)
+    encode_launches += 1
+    return classes, dc, dh
+
+
+def ditto_fused_matmul(w_q: torch.Tensor, dcache: torch.Tensor, dhigh: torch.Tensor,
+                       classes: torch.Tensor, y_prev: torch.Tensor | None = None, *,
+                       bm: int = 128, bn: int = 128, bk: int = 128,
+                       w_transposed: bool = False) -> torch.Tensor:
+    """y_prev + (x_t - x_prev) @ W from the Δ-cache, (..., M, N) int32;
+    with ``y_prev=None`` the bare contribution.
+
+    w_q: (..., K, N) int8 — (..., N, K) with ``w_transposed``; dcache
+    (..., M, K/2) int8, dhigh (..., M, K) int8 and classes
+    (..., M/bm, K/bk) int32, all from :func:`diff_encode_fused`."""
+    global matmul_launches
+    m, k = dhigh.shape[-2:]
+    n, k2 = w_q.shape[-2:] if w_transposed else w_q.shape[-2:][::-1]
+    lead = dhigh.shape[:-2]
+    if (k != k2 or m % bm or n % bn or k % bk
+            or tuple(dcache.shape) != lead + (m, k // 2)
+            or tuple(classes.shape) != lead + (m // bm, k // bk)
+            or (y_prev is not None and tuple(y_prev.shape) != lead + (m, n))):
+        raise ValueError(
+            f"ditto_fused_matmul: inconsistent shapes w_q {tuple(w_q.shape)} "
+            f"(w_transposed={w_transposed}), dcache {tuple(dcache.shape)}, dhigh "
+            f"{tuple(dhigh.shape)}, classes {tuple(classes.shape)}, y_prev "
+            f"{None if y_prev is None else tuple(y_prev.shape)} for tiles ({bm}, {bn}, {bk})")
+    _check_even("ditto_fused_matmul", bk)
+    if dhigh.device.type == "cpu":
+        y = ditto_fused_matmul_ref(w_q, dcache, dhigh, classes, (bm, bk),
+                                   w_transposed=w_transposed)
+        return y if y_prev is None else y + y_prev
+    if (bm, bn, bk) != (128, 128, 128):
+        raise ValueError(f"ditto_fused_matmul: the CUDA kernel tiles by 128, got "
+                         f"({bm}, {bn}, {bk})")
+    if w_q.shape[:-2] != lead:
+        raise ValueError(f"ditto_fused_matmul: batch dims differ: {tuple(dhigh.shape)} vs "
+                         f"{tuple(w_q.shape)}")
+    common.check_cuda_operand("ditto_fused_matmul w_q", w_q, torch.int8)
+    common.check_cuda_operand("ditto_fused_matmul dcache", dcache, torch.int8)
+    common.check_cuda_operand("ditto_fused_matmul dhigh", dhigh, torch.int8)
+    common.check_cuda_operand("ditto_fused_matmul classes", classes, torch.int32)
+    if y_prev is not None:
+        common.check_cuda_operand("ditto_fused_matmul y_prev", y_prev, torch.int32)
+    out = torch.empty(lead + (m, n), dtype=torch.int32, device=dhigh.device)
+    fn = common.cuda_fn("ditto_fused_matmul", _MATMUL_ARGTYPES)
+    rc = fn(w_q.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
+            None if y_prev is None else y_prev.data_ptr(), out.data_ptr(), math.prod(lead),
+            m, n, k, n * k, m * k, m * n, (m // bm) * (k // bk), int(w_transposed),
+            common.stream_ptr(dhigh))
+    common.launch_check("ditto_fused_matmul", rc)
+    matmul_launches += 1
+    return out
+
+
+def hold_maps(classes: torch.Tensor, gn: int, *, w_transposed: bool = False):
+    """The reference's prefetched block-index tables, for a 2-D class map.
+
+    For each operand and each step t of the (i, j, kk) grid traversal (kk
+    innermost) the table holds the block index to present: a step that
+    needs the operand presents its real block; one that does not presents
+    the index held at t - 1, or, before the first needed step, the first
+    needed block. Needs: dc — class >= 1; dh — class 2; W — class >= 1.
+    Returns (kd, kh, kw), each (gm * gn * gk, 2) int32 in traversal order."""
+    classes = torch.as_tensor(classes)
+    gm, gk = classes.shape
+    shape = (gm, gn, gk)
+    dev = classes.device
+    cls3 = classes[:, None, :].expand(shape)
+    ii = torch.arange(gm, device=dev)[:, None, None].expand(shape)
+    jj = torch.arange(gn, device=dev)[None, :, None].expand(shape)
+    kk = torch.arange(gk, device=dev)[None, None, :].expand(shape)
+
+    def hold(need, real):
+        flat_need = need.reshape(-1)
+        flat_real = real.reshape(-1, 2)
+        t = torch.arange(flat_need.numel(), device=dev)
+        last = torch.cummax(torch.where(flat_need, t, -1), dim=0).values
+        first = torch.argmax(flat_need.to(torch.int32))  # 0 when nothing is ever needed
+        idx = torch.where(last >= 0, last, first)
+        return flat_real[idx].to(torch.int32)
+
+    d_real = torch.stack([ii, kk], dim=-1)
+    w_real = torch.stack([jj, kk] if w_transposed else [kk, jj], dim=-1)
+    return hold(cls3 >= 1, d_real), hold(cls3 == 2, d_real), hold(cls3 >= 1, w_real)

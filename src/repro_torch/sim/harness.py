@@ -1,8 +1,10 @@
-"""The serving pass over the Ditto engine.
+"""The serving pass and the design-point pass over the Ditto engine.
 
-Mirror of ``serve_records`` of ``src/repro/sim/harness.py``; the
-design-point pass (``collect_records``, ``run_designs``) waits for
-``sim/cycles.py`` (ROADMAP.md, queue 1).
+Mirror of ``src/repro/sim/harness.py``: ``serve_records`` is the
+deployment pass; ``collect_records`` runs one exact eager pass whose
+per-mode statistics ``run_designs`` prices on each design point of the
+paper's Fig. 13 (GPU as an analytic A100, ITC, Diffy, Cambricon-D, Ditto,
+Ditto+), through ``sim/cycles.py``.
 """
 from __future__ import annotations
 
@@ -11,10 +13,27 @@ import torch
 from ..core import diffusion
 from ..core.ditto.dit_runner import make_denoise_fn
 from ..core.ditto.engine import DittoEngine
+from ..core.ditto.hwmodel import CAMBRICON_D, DIFFY, DITTO_HW, ITC
 from ..core.ditto.plan import DittoPlan
 from ..kernels.common import resolve_device
 from ..nn import dit as dit_mod
 from ..nn.core import map_tree
+from . import cycles
+
+DESIGN_HW = {
+    "itc": ITC,
+    "diffy": DIFFY,
+    "cambricon-d": CAMBRICON_D,
+    "ditto": DITTO_HW,
+    "ditto+": DITTO_HW,
+}
+
+# The reference's analytic A100 baseline, as it is (model inputs, not
+# measurements): 624 TOPS int8 peak at low single-digit sustained
+# utilization for small-batch diffusion inference (the paper's GPU bars
+# sit below the 27-TOPS ITC), 1.555 TB/s.
+GPU_TOPS = 624e12 * 0.03
+GPU_BW = 1.555e12
 
 
 def _on(device, params, sched, x_T, labels):
@@ -29,7 +48,8 @@ def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
     """The deployment pass: eager calibration (+ the Defo mode decision
     after step 2), then the remaining steps through the kernels — act
     layers on int8_matmul, diff layers on diff_encode -> ditto_diff_matmul
-    with tile skipping on the card. Records cover every step (compiled
+    (``plan.low_bits=4``: its packed-int4 branch) or, with ``plan.fused``,
+    diff_encode_fused -> ditto_fused_matmul, with tile skipping on the card. Records cover every step (compiled
     steps build theirs from class fractions reduced on the card unless
     ``plan.collect_stats=False``).
 
@@ -45,3 +65,52 @@ def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
     eng.begin_sample()
     sample = diffusion.SAMPLERS[plan.sampler](sched, fn, x_T, steps=plan.steps, labels=labels)
     return eng.records, sample, eng
+
+
+def collect_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels, *, steps: int,
+                    sampler: str = "ddim", device=None):
+    """One exact eager engine pass collecting act/diff/spatial stats per
+    record. Returns (records, sample, engine)."""
+    dev = resolve_device(device)
+    params, sched, x_T, labels = _on(dev, params, sched, x_T, labels)
+    eng = DittoEngine(policy="diff", collect_oracle=True, device=dev)
+    fn = make_denoise_fn(params, cfg, eng, device=dev)
+    eng.begin_sample()
+    sample = diffusion.SAMPLERS[sampler](sched, fn, x_T, steps=steps, labels=labels)
+    return eng.records, sample, eng
+
+
+def run_designs(records, *, t_mult: float = 1.0, d_mult: float = 1.0,
+                seq_mult: float | None = None, designs=tuple(DESIGN_HW), **mode_kw) -> dict:
+    """Price one record set on each design point (and the analytic GPU)."""
+    recs = cycles.scale_records(records, t_mult=t_mult, d_mult=d_mult, seq_mult=seq_mult)
+    out = {}
+    for name in designs:
+        hw = DESIGN_HW[name]
+        fn = cycles.mode_fn_for(name, recs, hw, **mode_kw)
+        out[name] = cycles.simulate(recs, hw, fn)
+    out["gpu-a100"] = gpu_baseline(recs)
+    return out
+
+
+def gpu_baseline(records) -> dict:
+    """The reference's analytic A100: max(compute, memory) at GPU_TOPS / GPU_BW."""
+    total_macs = sum(r["macs"] for r in records)
+    total_bytes = sum(cycles._mem_bytes(r, "act") for r in records)
+    t = max(2 * total_macs / GPU_TOPS, total_bytes / GPU_BW)
+    return {"hw": "gpu-a100", "time_s": t, "energy_j": t * 300.0, "cycles": t * 1.41e9}
+
+
+def run_all(params, cfg: dit_mod.DiTCfg, sched, x_T, labels, *, steps: int,
+            sampler: str = "ddim", t_mult: float = 1.0, d_mult: float = 1.0,
+            seq_mult: float | None = None, device=None):
+    """collect_records then run_designs; every design's result carries the
+    sample, and the records and engine ride along."""
+    records, sample, eng = collect_records(params, cfg, sched, x_T, labels, steps=steps,
+                                           sampler=sampler, device=device)
+    out = run_designs(records, t_mult=t_mult, d_mult=d_mult, seq_mult=seq_mult)
+    for r in out.values():
+        r["sample"] = sample
+    out["records"] = records
+    out["engine"] = eng
+    return out

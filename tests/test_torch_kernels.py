@@ -21,6 +21,7 @@ from repro.kernels.diff_encode import LOW_BIT_MAX as REF_LOW_BIT_MAX  # noqa: E4
 from repro_torch.kernels import common, ops, ref  # noqa: E402
 from repro_torch.kernels import diff_encode as pdiff_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as pdiff_mm  # noqa: E402
+from repro_torch.kernels import fused_step as pfused  # noqa: E402
 from repro_torch.kernels import int8_matmul as pint8  # noqa: E402
 
 
@@ -147,23 +148,39 @@ def test_plain_diff_matmul_skips_class0_tiles_like_the_kernel():
 
 
 def test_unported_variants_raise():
-    x = torch.zeros(128, 128, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ditto_linear_step(x, x, x, low_bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ditto_linear_step(x, x, x, fused=True)
+    """Every variant of the reference runs now (``low_bits=4`` and
+    ``fused=True`` give the two-pass result); what stays refused is input
+    outside the kernels' domain."""
+    x = torch.ones(128, 128, dtype=torch.int8)
+    want, want_c = ops.ditto_linear_step(x, torch.zeros_like(x), x)
+    for knobs in (dict(low_bits=4), dict(fused=True)):
+        got, got_c = ops.ditto_linear_step(x, torch.zeros_like(x), x, **knobs)
+        assert torch.equal(got, want) and torch.equal(got_c, want_c)
     with pytest.raises(ValueError):
         ops.ditto_linear_step(x, x, x, low_bits=2)
     with pytest.raises(ValueError, match="tile"):
         pint8.int8_matmul(torch.zeros(100, 128, dtype=torch.int8), x)
+    with pytest.raises(ValueError, match="even"):
+        pdiff_mm.ditto_diff_matmul(x[:1, :3], x[:1, :3], x[:3, :1], None,
+                                   torch.ones(1, 1, dtype=torch.int32), bm=1, bn=1, bk=3,
+                                   low_bits=4)
+    with pytest.raises(ValueError, match="even"):
+        pfused.diff_encode_fused(x[:, :99], x[:, :99], bk=33)
+
+
+def _counts():
+    return (pint8.launches, pdiff_encode.launches, pdiff_mm.launches, pdiff_mm.launches_int4,
+            pfused.encode_launches, pfused.matmul_launches)
 
 
 def test_cpu_wrappers_launch_nothing():
-    before = (pint8.launches, pdiff_encode.launches, pdiff_mm.launches)
+    before = _counts()
     x = torch.ones(128, 128, dtype=torch.int8)
     ops.ditto_linear_step(x, x, x)
+    ops.ditto_linear_step(x, x, x, low_bits=4)
+    ops.ditto_linear_step(x, x, x, fused=True)
     ops.int8_act_matmul(x, x)
-    assert (pint8.launches, pdiff_encode.launches, pdiff_mm.launches) == before
+    assert _counts() == before
 
 
 # ------------------------------------------------------------- card leg
@@ -186,14 +203,26 @@ def test_cuda_kernels_match_plain_versions(lead, m, k, n, w_transposed):
     w = r8(*lead, n, k) if w_transposed else r8(*lead, k, n)
     y_prev = torch.randint(-2**20, 2**20, (*lead, m, n), generator=g, device="cuda",
                            dtype=torch.int32)
-    n0 = (pint8.launches, pdiff_encode.launches, pdiff_mm.launches)
+    n0 = _counts()
     y = pint8.int8_matmul(x_t, w, w_transposed=w_transposed)
     assert torch.equal(y, ref.int8_matmul_ref(x_t, w, w_transposed=w_transposed))
     cls = pdiff_encode.diff_encode(x_t, x_p)
     assert torch.equal(cls, ref.diff_encode_ref(x_t, x_p, (128, 128)))
+    cls_f, dc, dh = pfused.diff_encode_fused(x_t, x_p)
+    want_c, want_dc, want_dh = ref.diff_encode_fused_ref(x_t, x_p, (128, 128))
+    live = ref.tile_mask(want_c, (128, 64), lambda c: c >= 1)
+    full = ref.tile_mask(want_c, (128, 128), lambda c: c == 2)
+    assert torch.equal(cls_f, want_c)
+    assert torch.equal(dc[live], want_dc[live]) and torch.equal(dh[full], want_dh[full])
     for yp in (y_prev, None):
+        want = ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=w_transposed)
         got = pdiff_mm.ditto_diff_matmul(x_t, x_p, w, yp, cls, w_transposed=w_transposed)
-        assert torch.equal(got, ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls,
+        assert torch.equal(got, want)
+        got = pdiff_mm.ditto_diff_matmul(x_t, x_p, w, yp, cls, low_bits=4,
+                                         w_transposed=w_transposed)
+        assert torch.equal(got, ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, low_bits=4,
                                                           w_transposed=w_transposed))
-    assert (pint8.launches, pdiff_encode.launches, pdiff_mm.launches) == (
-        n0[0] + 1, n0[1] + 1, n0[2] + 2)
+        got = pfused.ditto_fused_matmul(w, dc, dh, cls_f, yp, w_transposed=w_transposed)
+        bare = ref.ditto_fused_matmul_ref(w, dc, dh, cls_f, w_transposed=w_transposed)
+        assert torch.equal(got, bare if yp is None else bare + yp) and torch.equal(got, want)
+    assert _counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 2, n0[3] + 2, n0[4] + 1, n0[5] + 2)

@@ -74,16 +74,23 @@ def _int_records(records):
     return {(r["layer"], r["step"]): (r["mode"], r.get("tile_hist")) for r in records}
 
 
-@pytest.mark.parametrize("policy", ["diff", "defo"])
-def test_serve_records_matches_reference(inputs, policy):
+# (policy, kernel knobs): the two-pass flow, its packed-int4 branch and the
+# fused flow
+PLANS = [pytest.param("diff", {}, id="diff"), pytest.param("defo", {}, id="defo"),
+         pytest.param("diff", dict(low_bits=4), id="diff-low_bits4"),
+         pytest.param("defo", dict(fused=True, low_bits=4), id="defo-fused-low_bits4")]
+
+
+@pytest.mark.parametrize("policy,knobs", PLANS)
+def test_serve_records_matches_reference(inputs, policy, knobs):
     """Sample to 1e-5 of its scale (fp32 glue order, see module doc);
     modes and tile histograms exactly; float records to 1e-3 (one flipped
     int8 rounding moves a class fraction by 1/numel)."""
     tree, x_T, labels = inputs
     rrecs, rsample, _ = rharness.serve_records(
         jax.tree.map(jnp.asarray, tree), rdit.DiTCfg(**CFG_KW), rdiffusion.linear_schedule(1000),
-        jnp.asarray(x_T), jnp.asarray(labels), RDittoPlan(steps=STEPS, policy=policy))
-    recs, sample, eng = _serve_port(inputs, DittoPlan(steps=STEPS, policy=policy))
+        jnp.asarray(x_T), jnp.asarray(labels), RDittoPlan(steps=STEPS, policy=policy, **knobs))
+    recs, sample, eng = _serve_port(inputs, DittoPlan(steps=STEPS, policy=policy, **knobs))
     rsample = np.asarray(rsample)
     np.testing.assert_allclose(sample.numpy(), rsample, rtol=0,
                                atol=1e-5 * np.abs(rsample).max())
@@ -100,11 +107,12 @@ def test_serve_records_matches_reference(inputs, policy):
     assert eng.summary()["steps"] == STEPS
 
 
-@pytest.mark.parametrize("policy", ["act", "diff", "defo"])
-def test_compiled_equals_eager_sample(inputs, policy):
+@pytest.mark.parametrize("policy,knobs", [pytest.param("act", {}, id="act")] + PLANS + [
+    pytest.param("diff", dict(fused=True), id="diff-fused")])
+def test_compiled_equals_eager_sample(inputs, policy, knobs):
     """The kernel pass reproduces the eager-only pass bit for bit: same fp32
-    glue, and the int32 products are exact in both."""
-    _, s_compiled, _ = _serve_port(inputs, DittoPlan(steps=STEPS, policy=policy))
+    glue, and the int32 products are exact in both, in every flow."""
+    _, s_compiled, _ = _serve_port(inputs, DittoPlan(steps=STEPS, policy=policy, **knobs))
     _, s_eager, eng = _serve_port(inputs, DittoPlan(steps=STEPS, policy=policy, compiled=False))
     assert torch.equal(s_compiled, s_eager)
     assert torch.isfinite(s_compiled).all()
