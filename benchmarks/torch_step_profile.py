@@ -46,12 +46,13 @@ from repro_torch.core.ditto import DittoPlan  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
-# the port's kernels, by the name of their __global__ function in csrc/ (the
-# packed-int4 branch runs inside diff_matmul_kernel)
+# the port's kernels, by a part of their __global__ function's name in csrc/:
+# the two difference GEMMs are diff_gemm_kernel<P> with producer P (the
+# packed-int4 branch runs inside diff_gemm_kernel<DiffProducer>)
 PORT_KERNELS = {"int8_matmul": "int8_matmul_kernel", "diff_encode": "diff_encode_kernel",
-                "ditto_diff_matmul": "diff_matmul_kernel",
+                "ditto_diff_matmul": "DiffProducer",
                 "diff_encode_fused": "diff_encode_fused_kernel",
-                "ditto_fused_matmul": "fused_matmul_kernel"}
+                "ditto_fused_matmul": "FusedProducer"}
 # run name -> (policy, kernel knobs of the plan)
 RUNS = {"act": ("act", {}), "diff": ("diff", {}), "diff-low_bits4": ("diff", dict(low_bits=4)),
         "diff-fused": ("diff", dict(fused=True))}

@@ -8,11 +8,16 @@ Phases (any failure raises and the script exits non-zero):
 1. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
 2. parity  — each kernel against its plain PyTorch version on the card,
              bit for bit (``torch.equal``), at every DiT-XL/2 main-path
-             shape at B = 2, over zero / low / boundary / full Δ mixes,
-             with y_prev given and absent: the two-pass kernels (the diff
+             shape at B = 2 (the linear layers with W K-major, as the
+             compiled pass keeps it, and (K, N)), over zero / low /
+             boundary / full / sparse Δ mixes (sparse: classes 0 / 1 / 2
+             interleaved along K, K splits and a block row without a live
+             tile), with y_prev given and absent: the two-pass kernels (the diff
              GEMM at ``low_bits`` 8 and 4) and the fused pair (the Δ-cache
              compared on the tiles whose class gates it in; the fused GEMM
-             also against the two-pass plain version).
+             also against the two-pass plain version). The three difference
+             GEMMs also run with K forced to every split count 1-8 at wd's
+             shape, over the full and sparse mixes.
 3. slice   — ``serve_records`` at DiT-XL/2 full width (random weights from
              a seed), 2 requests, 20 DDIM steps, under policy act, diff and
              defo, then under (diff, ``low_bits=4``), (diff, ``fused``) and
@@ -35,6 +40,7 @@ The last lines are the kernels JSON, the card's name and power limit, and
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -109,32 +115,66 @@ def zero_counts() -> None:
 
 # ------------------------------------------------------------------ parity
 # (batch dims, M, K, N, w_transposed) of every main-path kernel call at B = 2,
-# after the ops wrappers' 128-padding
-PATH_SHAPES = [
-    ((), 512, 1152, 1152, False),  # wq / wk / wv / wo
-    ((), 512, 1152, 4608, False),  # wi
-    ((), 512, 4608, 1152, False),  # wd
-    ((), 512, 1152, 128, False),  # final.out (N = 16)
-    ((), 128, 1152, 6912, False),  # mod (M = B = 2)
+# after the ops wrappers' 128-padding. The compiled pass keeps the linear
+# weights K-major (w_transposed); their (K, N) layout is held as well.
+LINEAR_SHAPES = [
+    ((), 512, 1152, 1152),  # wq / wk / wv / wo
+    ((), 512, 1152, 4608),  # wi
+    ((), 512, 4608, 1152),  # wd
+    ((), 512, 1152, 128),  # final.out (N = 16)
+    ((), 128, 1152, 6912),  # mod (M = B = 2)
+]
+PATH_SHAPES = [s + (wt,) for wt in (True, False) for s in LINEAR_SHAPES] + [
     ((32,), 256, 128, 256, True),  # qk, act and both diff sub-ops (head dim 72)
     ((32,), 256, 256, 128, True),  # pv act; pv diff sub-op dQ (N = 72)
     ((32,), 128, 256, 256, True),  # pv diff sub-op dK (M = 72)
 ]
-MIXES = ("zero", "low", "edge", "full")
+MIXES = ("zero", "low", "edge", "full", "sparse")
+# the shape (wd's, W K-major) at which the diff GEMMs run every K split count
+SPLIT_SHAPE = ((), 512, 4608, 1152)
+MAX_SPLITS = 8  # a portable thread-block cluster
+
+
+def sparse_classes(lead, gm, kt):
+    """The designed tile classes of the sparse mix, (*lead, gm, kt): classes
+    0 / 1 / 2 interleaved along K, shifted by row and batch element; even
+    rows hold no live tile in the first half of K, odd rows none in the
+    second (whole K splits without a live tile); the last row, where there
+    are several, holds none at all."""
+    i = torch.arange(gm, device=DEVICE)[:, None]
+    j = torch.arange(kt, device=DEVICE)[None, :]
+    bidx = torch.arange(math.prod(lead), device=DEVICE).reshape(lead + (1, 1))
+    cls = (i + j + bidx) % 3
+    hole = torch.where(i % 2 == 0, j < kt // 2, j >= kt // 2)
+    cls = torch.where(hole, 0, cls)
+    if gm > 1:
+        cls[..., gm - 1, :] = 0
+    return cls
 
 
 def delta_pair(g, shape, mix):
     """(x_t, x_prev) int8 on the card whose Δ follows ``mix``; a full mix
-    also keeps one class-0 tile so skipping is exercised."""
+    also keeps one class-0 tile so skipping is exercised; a sparse mix
+    follows :func:`sparse_classes` tile by tile (class-2 tiles alternate
+    between Δ in [-254, 254] and in [-20, 20])."""
     x_t = torch.randint(-127, 128, shape, generator=g, device=DEVICE, dtype=torch.int8)
-    if mix == "zero":
+    if mix == "sparse":
+        lead, (m, k) = shape[:-2], shape[-2:]
+        cls = sparse_classes(lead, m // 128, k // 128)
+        cls = cls.repeat_interleave(128, dim=-2).repeat_interleave(128, dim=-1)
+        wide = (torch.arange(k, device=DEVICE) // 128) % 2 == 0
+        full = torch.randint(-254, 255, shape, generator=g, device=DEVICE, dtype=torch.int32)
+        mid = torch.randint(-20, 21, shape, generator=g, device=DEVICE, dtype=torch.int32)
+        low = torch.randint(-7, 8, shape, generator=g, device=DEVICE, dtype=torch.int32)
+        d = torch.where(cls == 2, torch.where(wide, full, mid), torch.where(cls == 1, low, 0))
+    elif mix == "zero":
         d = torch.zeros(shape, dtype=torch.int32, device=DEVICE)
     elif mix == "low":
         d = torch.randint(-7, 8, shape, generator=g, device=DEVICE, dtype=torch.int32)
     elif mix == "edge":
         sign = 1 - 2 * torch.randint(0, 2, shape, generator=g, device=DEVICE, dtype=torch.int32)
         d = torch.randint(7, 9, shape, generator=g, device=DEVICE, dtype=torch.int32) * sign
-    else:
+    else:  # full
         d = torch.randint(-254, 255, shape, generator=g, device=DEVICE, dtype=torch.int32)
         d[..., :128, :128] = 0
     return x_t, (x_t.to(torch.int32) - d).clamp(-127, 127).to(torch.int8)
@@ -187,7 +227,30 @@ def phase_parity() -> dict:
                 got = k_fused.ditto_fused_matmul(w, dc, dh, cls_f, yp, w_transposed=wt)
                 hold("ditto_fused_matmul", got, bare if yp is None else bare + yp)
                 hold("ditto_fused_matmul", got, want)  # and the two-pass function
-        say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt}")
+        splits = common.diff_gemm_splits(math.prod(lead), m, n, k)
+        say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt} K splits={splits}")
+
+    # every K split count a cluster can take (the path launches 1, 4 and 8),
+    # forced at wd's shape: the DSMEM reduction's share of the tile's
+    # vectors differs for each count
+    lead, m, k, n = SPLIT_SHAPE
+    w = torch.randint(-127, 128, lead + (n, k), generator=g, device=DEVICE, dtype=torch.int8)
+    for mix in ("full", "sparse"):
+        x_t, x_p = delta_pair(g, lead + (m, k), mix)
+        cls = k_encode.diff_encode(x_t, x_p)
+        cls_f, dc, dh = k_fused.diff_encode_fused(x_t, x_p)
+        y_prev = torch.randint(-2**24, 2**24, lead + (m, n), generator=g, device=DEVICE,
+                               dtype=torch.int32)
+        for yp in (y_prev, None):
+            want = ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=True)
+            want4 = ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=True,
+                                              low_bits=4)
+            for splits in range(1, MAX_SPLITS + 1):
+                hold("ditto_diff_matmul", k_diff.launch(x_t, x_p, w, yp, cls, 8, splits), want)
+                hold(DIFF4, k_diff.launch(x_t, x_p, w, yp, cls, 4, splits), want4)
+                hold("ditto_fused_matmul",
+                     k_fused.launch_matmul(w, dc, dh, cls_f, yp, splits), want)
+    say(f"parity ok  forced K splits 1..{MAX_SPLITS} lead={lead} M={m} K={k} N={n}")
     say(f"parity: {checks} checks bit-exact, max |err| {max_err}")
     return max_err
 
@@ -457,8 +520,11 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
                    bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=None, slice_calls=cap.calls[key])
         x, w = args[:2]
-        if name == "int8_matmul" and x.dim() == 2 and not kw.get("w_transposed", False):
-            row["library_ms"] = median_ms(lambda: torch._int_mm(x, w), flush)
+        if name == "int8_matmul" and x.dim() == 2:
+            # torch._int_mm takes W as (K, N): a K-major weight is laid out so
+            # before the clock starts
+            w_kn = w.t().contiguous() if kw.get("w_transposed", False) else w
+            row["library_ms"] = median_ms(lambda: torch._int_mm(x, w_kn), flush)
         rows.append(row)
         bounds[key] = row["bound_ms"]
         say("time " + json.dumps(row))

@@ -15,6 +15,13 @@ run through the kernels:
         the same int32 result and the same class map, and the measured
         per-step tile-class histogram (``tile_hist``) feeds the pricing.
 
+Weights. The int8 tensor cores read B only K-major, so the pass keeps
+each linear layer's int8 weight as (N, K), ``w_qk`` (the reference's
+``w_q`` transposed, made once when the pass is built) and calls every
+kernel with ``w_transposed=True``; every wrapper still takes a (K, N)
+weight from other callers (the difference GEMMs lay it out K-major for
+their kernel first).
+
 Nothing is traced: PyTorch runs eagerly, and "compiled" names the pass
 that launches the hand-written kernels. Where the reference scanned the
 attention identity over the (batch x heads) dim, each sub-operation here
@@ -70,17 +77,17 @@ def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
     """Compiled linear op: params in, state in -> (y fp32, state, aux).
     Bit-identical int32 y_prev to the eager path for every mode."""
     x2 = x.reshape(-1, x.shape[-1])
-    n = p["w_q"].shape[1]
+    n = p["w_qk"].shape[0]
     q_t = quant.quantize(x2, p["x_scale"])
 
     aux: dict = {}
     if mode == "diff":
-        y_i32, classes = ops.ditto_linear_step(q_t, st["x_prev"], p["w_q"], st["y_prev"],
-                                               plan=plan)
+        y_i32, classes = ops.ditto_linear_step(q_t, st["x_prev"], p["w_qk"], st["y_prev"],
+                                               plan=plan, w_transposed=True)
         if plan.collect_stats:
             aux["tile_hist"] = _tile_hist(classes)
     else:  # act, and spatial (whose eager branch computes the direct GEMM)
-        y_i32 = ops.int8_act_matmul(q_t, p["w_q"], plan=plan)
+        y_i32 = ops.int8_act_matmul(q_t, p["w_qk"], plan=plan, w_transposed=True)
     if plan.collect_stats:
         if mode == "spatial":
             aux["cls_diff"] = _class_fractions(classify.spatial_diff(q_t, axis=0)[1:])
@@ -147,7 +154,7 @@ class CompiledDittoEngine:
         self.params: dict[str, dict] = {}
         for name, st in engine.layers.items():
             if st.w is not None:
-                self.params[name] = dict(w_q=st.w.q, w_scale=st.w.scale,
+                self.params[name] = dict(w_qk=st.w.q.t().contiguous(), w_scale=st.w.scale,
                                          bias=st.bias, x_scale=st.x_scale)
             else:
                 self.params[name] = dict(a_scale=st.a_scale, b_scale=st.b_scale)

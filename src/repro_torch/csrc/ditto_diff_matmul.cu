@@ -1,116 +1,123 @@
-// Tile-skipping temporal-difference GEMM, batched:
+// Tile-skipping temporal-difference GEMM, batched, for sm_90a:
 //   out[b] = y_prev[b] + (x_t[b] - x_prev[b]) @ W[b]        (exact int32)
 //
-// delta = x_t - x_prev lies in [-254, 254] and does not fit an int8 mma
-// operand, so each staged chunk is split exactly into two int8 planes
-//   lo = clamp(delta, -127, 127),  hi = delta - lo   (|hi| <= 127)
-// and delta @ W = lo @ W + hi @ W accumulates into the same int32
-// fragments. hi is all-zero unless some |delta| > 127 in the chunk; the
-// block votes on that (__syncthreads_or) and skips the second product when
-// it is not needed, so class-1 chunks and most class-2 chunks issue one
-// mma pass. A class-0 tile (classes[b][i][kk] == 0, from diff_encode)
-// issues no load and no product at all.
+// Replaces src/repro/kernels/ditto_diff_matmul.py: ditto_diff_matmul (the
+// Pallas body _kernel, both low_bits branches). The mainloop, pipeline,
+// split-K and epilogue are diff_gemm_sm90.cuh's; this file supplies the
+// producer of the A operand: the x_t and x_prev chunks are staged raw
+// (cp.async, 64 bytes a row each) and every thread builds its wgmma A
+// fragments from them in registers:
 //
-// low_bits = 4 (int4_low): a class-1 chunk is staged as packed int4 x 2
-// words instead (int4_pack.cuh: 32 bytes a row, half the int8 delta) and
-// unpacked into the mma operand as the fragments load. The class-1
-// verdict (max|delta| <= 7) keeps every lane inside the exact [-8, 7]
-// range, so the result equals the int8 branch bit for bit. Class-2 chunks
-// keep the exact lo/hi split.
+//   d = x_t - x_prev a byte lane at a time (mod 256). A word whose lanes
+//   cannot leave [-127, 127] (no signed overflow, no -128) is its own lo
+//   plane and has hi = 0; otherwise the word takes the exact split
+//   lo = clamp(Δ, -127, 127), hi = Δ - lo (split_delta4) and the
+//   warpgroup's vote turns the hi product on. class-1 tiles (max|Δ| <= 7)
+//   go the same way under low_bits = 8 (the reference's merged predicate).
 //
-// W[b] is (K, N) row-major, or (N, K) row-major when w_t. y_prev may be
-// null (the bare diff contribution). M, N, K are multiples of 128.
-#include "int4_pack.cuh"
+// low_bits = 4 (int4_low): a class-1 chunk's lanes go through the int4
+// lane format instead (nibble_lanes: the pack -> unpack round trip, exact
+// in [-8, 7], which the class-1 verdict guarantees) and skip the split and
+// the vote. Hopper has no int4 x int8 tensor-core product, so the packed
+// word exists only in registers; both branches give the same int32 result.
+//
+// What bounds it: bytes at the path's B = 2 shapes (the int32 y_prev read
+// and output write are most of them), and it does less work the more
+// class-0 tiles the data has. W[b] is (N, K) row-major, K-major as int8
+// wgmma reads it (the wrapper lays a (K, N) weight out so first). y_prev
+// may be null (the bare diff contribution). M, N, K are multiples of 128.
+// `splits` is 0 for the kernel's own K split (launch_splits) or a forced
+// count; ditto_diff_gemm_splits reports the kernel's choice.
+#include "diff_gemm_sm90.cuh"
 
 namespace {
 
 using namespace ditto;
+using namespace ditto::sm90;
 
-// Split the 4 byte lanes of x_t - x_prev into the (lo, hi) int8 planes;
-// returns nonzero iff any hi lane is nonzero.
-__device__ __forceinline__ uint32_t split4(uint32_t xt, uint32_t xp, uint32_t& lo,
-                                           uint32_t& hi) {
-  int d[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] = byte_s8(xt, 8 * i) - byte_s8(xp, 8 * i);
-  return split_delta4(d, lo, hi);
-}
+struct DiffProducer {
+  static constexpr int XP_OFF = GM * GK;           // x_t, then x_prev: swizzled 64-byte rows
+  static constexpr int A_BYTES = 2 * GM * GK;
 
-__global__ void __launch_bounds__(THREADS)
-    diff_matmul_kernel(const int8_t* __restrict__ xt, const int8_t* __restrict__ xp,
-                       const int8_t* __restrict__ w, const int32_t* __restrict__ y_prev,
-                       const int32_t* __restrict__ classes, int32_t* __restrict__ out,
-                       int64_t m, int64_t n, int64_t k, int64_t sx, int64_t sw,
-                       int64_t so, int64_t sc, bool w_t, bool int4_low) {
-  __shared__ __align__(16) int8_t Lo[BM][PITCH];
-  __shared__ __align__(16) int8_t Hi[BM][PITCH];
-  __shared__ __align__(16) int8_t Bs[BN][PITCH];
-  __shared__ __align__(16) int8_t Ps[BM][PACKED_PITCH];
-  const int64_t b = blockIdx.z;
-  const int64_t m0 = int64_t(blockIdx.y) * BM, n0 = int64_t(blockIdx.x) * BN;
-  xt += b * sx + m0 * k;
-  xp += b * sx + m0 * k;
-  w += b * sw;
-  const int32_t* cls_row = classes + b * sc + blockIdx.y * (k / TILE_K);
-  Frag acc;
-  zero(acc);
-  for (int64_t k0 = 0; k0 < k; k0 += BK) {
-    const int cls = cls_row[k0 / TILE_K];  // uniform over the block
-    if (cls == 0) continue;
-    if (int4_low && cls == 1) {
-#pragma unroll
-      for (int it = 0; it < 2; ++it) {
-        const int v = threadIdx.x + it * THREADS;
-        const int r = v >> 2, c = (v & 3) * 16;
-        const uint4 a = *reinterpret_cast<const uint4*>(xt + r * k + k0 + c);
-        const uint4 p = *reinterpret_cast<const uint4*>(xp + r * k + k0 + c);
-        // per-byte difference mod 256: its low nibble is delta's
-        const uint4 d = make_uint4(__vsub4(a.x, p.x), __vsub4(a.y, p.y), __vsub4(a.z, p.z),
-                                   __vsub4(a.w, p.w));
-        *reinterpret_cast<uint2*>(&Ps[r][c / 2]) = pack_int4_x16(d);
-      }
-      load_w(Bs, w, w_t, n, k, n0, k0);
-      __syncthreads();
-      mma_chunk_packed(acc, Ps, Bs);
-      __syncthreads();
-      continue;
-    }
-    uint32_t any = 0;
+  __device__ static void load(uint8_t* st, const GemmArgs& a, int64_t b, int64_t m0,
+                              int64_t k0, int /*cls*/) {
+    const int8_t* xt = a.a0 + b * a.sa0 + m0 * a.k + k0;
+    const int8_t* xp = a.a1 + b * a.sa1 + m0 * a.k + k0;
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
-      const int v = threadIdx.x + it * THREADS;
+      const int v = threadIdx.x + it * GTHREADS;
       const int r = v >> 2, c = (v & 3) * 16;
-      const uint4 a = *reinterpret_cast<const uint4*>(xt + r * k + k0 + c);
-      const uint4 p = *reinterpret_cast<const uint4*>(xp + r * k + k0 + c);
-      uint4 lo, hi;
-      any |= split4(a.x, p.x, lo.x, hi.x);
-      any |= split4(a.y, p.y, lo.y, hi.y);
-      any |= split4(a.z, p.z, lo.z, hi.z);
-      any |= split4(a.w, p.w, lo.w, hi.w);
-      *reinterpret_cast<uint4*>(&Lo[r][c]) = lo;
-      *reinterpret_cast<uint4*>(&Hi[r][c]) = hi;
+      cp_async16(st + row64(r, c), xt + r * a.k + c);
+      cp_async16(st + XP_OFF + row64(r, c), xp + r * a.k + c);
     }
-    load_w(Bs, w, w_t, n, k, n0, k0);
-    const int need_hi = __syncthreads_or(any != 0);
-    mma_chunk(acc, Lo, Bs);
-    if (need_hi) mma_chunk(acc, Hi, Bs);
-    __syncthreads();
   }
-  store_tile(acc, out + b * so, y_prev == nullptr ? nullptr : y_prev + b * so, n, m0, n0);
-}
+
+  __device__ static bool frags(const uint8_t* st, const GemmArgs& a, int cls, int row0, int t4,
+                               uint32_t (&lo)[2][4], uint32_t (&hi)[2][4], uint32_t& any) {
+    const uint8_t* xs = st;
+    const uint8_t* ps = st + XP_OFF;
+    const bool low4 = a.low4 && cls == 1;
+    uint32_t out = 0;  // lanes whose Δ leaves [-127, 127]
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int off = row64(row0 + 8 * (q & 1), frag_k(s, q, t4));
+        const uint32_t x = *reinterpret_cast<const uint32_t*>(xs + off);
+        const uint32_t y = *reinterpret_cast<const uint32_t*>(ps + off);
+        const uint32_t d = sub_bytes(x, y);
+        lo[s][q] = low4 ? nibble_lanes(d) : d;
+        hi[s][q] = 0;
+        // signed overflow of a lane (|Δ| > 127 beyond a byte), or a -128 lane
+        out |= ((x ^ y) & (x ^ d)) | has_byte_80(d);
+      }
+    if (low4) return false;
+    if (out & 0x80808080u) {  // rare: the exact split for this thread's words
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int off = row64(row0 + 8 * (q & 1), frag_k(s, q, t4));
+          const uint32_t x = *reinterpret_cast<const uint32_t*>(xs + off);
+          const uint32_t y = *reinterpret_cast<const uint32_t*>(ps + off);
+          int dd[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dd[i] = byte_s8(x, 8 * i) - byte_s8(y, 8 * i);
+          any |= split_delta4(dd, lo[s][q], hi[s][q]);
+        }
+    }
+    return true;
+  }
+};
 
 }  // namespace
 
 extern "C" int ditto_diff_matmul(const void* xt, const void* xp, const void* w,
                                  const void* y_prev, const void* classes, void* out,
                                  int64_t batch, int64_t m, int64_t n, int64_t k, int64_t sx,
-                                 int64_t sw, int64_t so, int64_t sc, int w_t, int low_bits,
+                                 int64_t sw, int64_t so, int64_t sc, int low_bits, int splits,
                                  void* stream) {
-  const dim3 grid(unsigned(n / BN), unsigned(m / BM), unsigned(batch));
-  diff_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xt), static_cast<const int8_t*>(xp),
-      static_cast<const int8_t*>(w), static_cast<const int32_t*>(y_prev),
-      static_cast<const int32_t*>(classes), static_cast<int32_t*>(out), m, n, k, sx, sw, so,
-      sc, w_t != 0, low_bits == 4);
-  return int(cudaGetLastError());
+  GemmArgs a = {};
+  a.a0 = static_cast<const int8_t*>(xt);
+  a.a1 = static_cast<const int8_t*>(xp);
+  a.w = static_cast<const int8_t*>(w);
+  a.classes = static_cast<const int32_t*>(classes);
+  a.y_prev = static_cast<const int32_t*>(y_prev);
+  a.out = static_cast<int32_t*>(out);
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.sa0 = a.sa1 = sx;
+  a.sw = sw;
+  a.so = so;
+  a.sc = sc;
+  a.splits = splits;
+  a.low4 = low_bits == 4;
+  return launch_diff_gemm<DiffProducer>(a, batch, stream);
+}
+
+// The K split both difference GEMMs launch a (batch, m, n, k) product with
+// on the current device (0 or negative: see launch_splits).
+extern "C" int ditto_diff_gemm_splits(int64_t batch, int64_t m, int64_t n, int64_t k) {
+  return launch_splits(batch, m, n, k);
 }

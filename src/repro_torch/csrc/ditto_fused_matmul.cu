@@ -1,104 +1,127 @@
-// Fused-flow difference GEMM, batched: from the delta cache of
+// Fused-flow difference GEMM, batched, for sm_90a: from the Δ-cache of
 // diff_encode_fused.cu (never from x_t / x_prev),
 //   out[b] = y_prev[b] + delta[b] @ W[b]                  (exact int32)
-// with y_prev added in the epilogue (store_tile) or, when null, the bare
-// contribution delta @ W. Per 64-K chunk of the 128 x 128 output tile the
-// block branches on its K-tile's class:
-//   class 0: no load and no product;
-//   class 1: loads the dc chunk (32 bytes a row: the nibbles are delta)
-//            and W, and runs one product on the unpacked lanes
-//            (mma_chunk_packed);
-//   class 2: loads dc, dh and W, rebuilds delta = lo + 16 * dh lane by
-//            lane while staging, splits it exactly into int8 lo / hi
-//            planes (split_delta4) and accumulates lo @ W + hi @ W in one
-//            accumulator, skipping hi @ W when the block votes every
-//            |delta| <= 127.
-// W[b] is (K, N) row-major, or (N, K) row-major when w_t. M, N, K are
-// multiples of 128.
-#include "int4_pack.cuh"
+// or, with y_prev null, the bare contribution delta @ W.
+//
+// Replaces src/repro/kernels/fused_step.py: ditto_fused_matmul (the Pallas
+// body _fused_kernel). The mainloop, pipeline, split-K and epilogue are
+// diff_gemm_sm90.cuh's; this file supplies the producer of the A operand,
+// which stages per live 64-K chunk only the planes its class needs:
+//   class 1: dc (32 bytes a row: two int4 lanes a byte); the lanes are Δ,
+//            sign-extended nibble by nibble into the wgmma fragment;
+//   class 2: dc and dh; each lane is rebuilt as Δ = lo + 16 dh, written
+//            n + 16 e with n the raw nibble and e = dh - (n >> 3), so the
+//            byte of Δ is e << 4 | n. A word whose lanes all lie in
+//            [-127, 127] is its own lo plane; otherwise it takes the exact
+//            split lo = clamp(Δ, ±127), hi = Δ - lo (split_delta4) and the
+//            warpgroup's vote turns the hi product on.
+// Class-0 tiles stage nothing. The reference's hold maps (which let the
+// TPU pipeline elide copies of skipped blocks) have no counterpart: the
+// live-tile list never issues them. What bounds it: bytes at the path's
+// B = 2 shapes, the int32 y_prev read and output write the largest share.
+// W[b] is (N, K) row-major (K-major). M, N, K are multiples of 128.
+// `splits` is 0 for the kernel's own K split or a forced count.
+#include "diff_gemm_sm90.cuh"
 
 namespace {
 
 using namespace ditto;
+using namespace ditto::sm90;
 
-// Rebuild the 4 deltas of packed-byte pair pc (bits `s`..`s`+15) and high
-// bytes ph, then split them into (lo, hi) int8 planes; nonzero iff any hi.
-__device__ __forceinline__ uint32_t rebuild_split4(uint32_t pc, int s, uint32_t ph,
-                                                   uint32_t& lo, uint32_t& hi) {
-  const int d[4] = {unpack_int4_lo(pc, s) + 16 * byte_s8(ph, 0),
-                    unpack_int4_hi(pc, s) + 16 * byte_s8(ph, 8),
-                    unpack_int4_lo(pc, s + 8) + 16 * byte_s8(ph, 16),
-                    unpack_int4_hi(pc, s + 8) + 16 * byte_s8(ph, 24)};
-  return split_delta4(d, lo, hi);
-}
+struct FusedProducer {
+  static constexpr int DH_OFF = GM * GK / 2;  // dc: swizzled 32-byte rows, then dh: 64-byte
+  static constexpr int A_BYTES = DH_OFF + GM * GK;
 
-__global__ void __launch_bounds__(THREADS)
-    fused_matmul_kernel(const int8_t* __restrict__ w, const int8_t* __restrict__ dc,
-                        const int8_t* __restrict__ dh, const int32_t* __restrict__ classes,
-                        const int32_t* __restrict__ y_prev, int32_t* __restrict__ out,
-                        int64_t m, int64_t n, int64_t k, int64_t sw, int64_t sd, int64_t so,
-                        int64_t sc, bool w_t) {
-  __shared__ __align__(16) int8_t Lo[BM][PITCH];
-  __shared__ __align__(16) int8_t Hi[BM][PITCH];
-  __shared__ __align__(16) int8_t Bs[BN][PITCH];
-  __shared__ __align__(16) int8_t Ps[BM][PACKED_PITCH];
-  const int64_t b = blockIdx.z;
-  const int64_t m0 = int64_t(blockIdx.y) * BM, n0 = int64_t(blockIdx.x) * BN;
-  const int64_t kh = k / 2;  // dc row length in bytes
-  dc += b * (sd / 2) + m0 * kh;
-  dh += b * sd + m0 * k;
-  w += b * sw;
-  const int32_t* cls_row = classes + b * sc + blockIdx.y * (k / TILE_K);
-  Frag acc;
-  zero(acc);
-  for (int64_t k0 = 0; k0 < k; k0 += BK) {
-    const int cls = cls_row[k0 / TILE_K];  // uniform over the block
-    if (cls == 0) continue;
-    if (cls == 1) {
-      const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;  // 128 rows x 32 bytes
-      *reinterpret_cast<uint4*>(&Ps[r][c]) =
-          *reinterpret_cast<const uint4*>(dc + r * kh + k0 / 2 + c);
-      load_w(Bs, w, w_t, n, k, n0, k0);
-      __syncthreads();
-      mma_chunk_packed(acc, Ps, Bs);
-      __syncthreads();
-      continue;
+  __device__ static void load(uint8_t* st, const GemmArgs& a, int64_t b, int64_t m0,
+                              int64_t k0, int cls) {
+    const int64_t kh = a.k / 2;  // dc row length in bytes
+    {
+      const int r = threadIdx.x >> 1, c = (threadIdx.x & 1) * 16;  // 64 rows x 32 bytes
+      cp_async16(st + row32(r, c), a.a0 + b * a.sa0 + (m0 + r) * kh + k0 / 2 + c);
     }
-    uint32_t any = 0;
+    if (cls != 2) return;
+    const int8_t* dh = a.a1 + b * a.sa1 + m0 * a.k + k0;
 #pragma unroll
     for (int it = 0; it < 2; ++it) {
-      const int v = threadIdx.x + it * THREADS;
+      const int v = threadIdx.x + it * GTHREADS;
       const int r = v >> 2, c = (v & 3) * 16;
-      const uint2 pc = *reinterpret_cast<const uint2*>(dc + r * kh + (k0 + c) / 2);
-      const uint4 ph = *reinterpret_cast<const uint4*>(dh + r * k + k0 + c);
-      uint4 lo, hi;
-      any |= rebuild_split4(pc.x, 0, ph.x, lo.x, hi.x);
-      any |= rebuild_split4(pc.x, 16, ph.y, lo.y, hi.y);
-      any |= rebuild_split4(pc.y, 0, ph.z, lo.z, hi.z);
-      any |= rebuild_split4(pc.y, 16, ph.w, lo.w, hi.w);
-      *reinterpret_cast<uint4*>(&Lo[r][c]) = lo;
-      *reinterpret_cast<uint4*>(&Hi[r][c]) = hi;
+      cp_async16(st + DH_OFF + row64(r, c), dh + r * a.k + c);
     }
-    load_w(Bs, w, w_t, n, k, n0, k0);
-    const int need_hi = __syncthreads_or(any != 0);
-    mma_chunk(acc, Lo, Bs);
-    if (need_hi) mma_chunk(acc, Hi, Bs);
-    __syncthreads();
   }
-  store_tile(acc, out + b * so, y_prev == nullptr ? nullptr : y_prev + b * so, n, m0, n0);
-}
+
+  __device__ static bool frags(const uint8_t* st, const GemmArgs& /*a*/, int cls, int row0,
+                               int t4, uint32_t (&lo)[2][4], uint32_t (&hi)[2][4],
+                               uint32_t& any) {
+    uint32_t out = 0;  // lanes whose Δ leaves [-127, 127]
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = row0 + 8 * (q & 1), k = frag_k(s, q, t4);
+        const uint32_t n = nibbles(st, r, k);
+        hi[s][q] = 0;
+        if (cls == 1) {
+          lo[s][q] = nibble_lanes(n);
+          continue;
+        }
+        const uint32_t e = high_part(st, r, k, n);
+        const uint32_t d = ((e << 4) & 0xf0f0f0f0u) | n;  // Δ mod 256
+        lo[s][q] = d;
+        // Δ's sign is e's; a lane whose byte disagrees, or is -128, is outside [-127, 127]
+        out |= (d ^ e) | has_byte_80(d);
+      }
+    if (cls == 1) return false;
+    if (out & 0x80808080u) {  // rare: the exact split for this thread's words
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int r = row0 + 8 * (q & 1), k = frag_k(s, q, t4);
+          const uint32_t n = nibbles(st, r, k), e = high_part(st, r, k, n);
+          int dd[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dd[i] = 16 * byte_s8(e, 8 * i) + int((n >> (8 * i)) & 0xfu);
+          any |= split_delta4(dd, lo[s][q], hi[s][q]);
+        }
+    }
+    return true;
+  }
+
+  // The raw nibbles of K lanes k .. k + 3 of row r, one a byte lane.
+  __device__ static uint32_t nibbles(const uint8_t* st, int r, int k) {
+    return spread_nibbles(*reinterpret_cast<const uint16_t*>(st + row32(r, k / 2)));
+  }
+
+  // e = dh - (the nibble's sign bit), lane by lane without borrows between
+  // lanes, so that Δ = n + 16 e.
+  __device__ static uint32_t high_part(const uint8_t* st, int r, int k, uint32_t n) {
+    const uint32_t h = *reinterpret_cast<const uint32_t*>(st + DH_OFF + row64(r, k));
+    return ((h | 0x80808080u) - ((n >> 3) & 0x01010101u)) ^ (~h & 0x80808080u);
+  }
+};
 
 }  // namespace
 
 extern "C" int ditto_fused_matmul(const void* w, const void* dc, const void* dh,
                                   const void* classes, const void* y_prev, void* out,
                                   int64_t batch, int64_t m, int64_t n, int64_t k, int64_t sw,
-                                  int64_t sd, int64_t so, int64_t sc, int w_t, void* stream) {
-  const dim3 grid(unsigned(n / BN), unsigned(m / BM), unsigned(batch));
-  fused_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(w), static_cast<const int8_t*>(dc),
-      static_cast<const int8_t*>(dh), static_cast<const int32_t*>(classes),
-      static_cast<const int32_t*>(y_prev), static_cast<int32_t*>(out), m, n, k, sw, sd, so,
-      sc, w_t != 0);
-  return int(cudaGetLastError());
+                                  int64_t sd, int64_t so, int64_t sc, int splits, void* stream) {
+  GemmArgs a = {};
+  a.a0 = static_cast<const int8_t*>(dc);
+  a.a1 = static_cast<const int8_t*>(dh);
+  a.w = static_cast<const int8_t*>(w);
+  a.classes = static_cast<const int32_t*>(classes);
+  a.y_prev = static_cast<const int32_t*>(y_prev);
+  a.out = static_cast<int32_t*>(out);
+  a.m = m;
+  a.n = n;
+  a.k = k;
+  a.sa0 = sd / 2;
+  a.sa1 = sd;
+  a.sw = sw;
+  a.so = so;
+  a.sc = sc;
+  a.splits = splits;
+  a.low4 = 0;
+  return launch_diff_gemm<FusedProducer>(a, batch, stream);
 }

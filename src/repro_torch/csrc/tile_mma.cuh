@@ -1,6 +1,6 @@
-// Shared int8 tensor-core tile machinery of the GEMM kernels
-// (int8_matmul.cu, ditto_diff_matmul.cu, ditto_fused_matmul.cu; the encode
-// kernels take only byte_s8).
+// int8 tensor-core tile machinery of int8_matmul.cu (mma.sync, synchronous
+// staging), and the lane helpers every kernel shares: byte_s8 (the encode
+// kernels) and split_delta4 (the difference GEMMs of diff_gemm_sm90.cuh).
 //
 // One thread block computes one 128 x 128 int32 output tile with
 // mma.sync.m16n8k32 (s8 x s8 -> s32). 256 threads = 8 warps laid out

@@ -7,6 +7,8 @@
 * :func:`pad2` — zero-padding the last two dims up to the tile grid (the
   128-tile padding contract of every kernel module).
 * :func:`validate_low_bits` — the ``low_bits`` domain check.
+* :func:`diff_gemm_splits` — the K split the difference GEMMs' kernel
+  (``csrc/diff_gemm_sm90.cuh``) chooses for a launch on the card.
 * :func:`cuda_fn` / :func:`build_library` — build the CUDA sources under
   ``csrc`` with ``nvcc`` into one shared library with a plain C interface
   and bind its entry points with ``ctypes``. The library is named after a
@@ -28,8 +30,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
-           "resolve_device", "library_path", "build_library", "cuda_fn",
-           "launch_check", "stream_ptr", "check_cuda_operand"]
+           "diff_gemm_splits", "resolve_device",
+           "library_path", "build_library", "cuda_fn", "launch_check", "stream_ptr",
+           "check_cuda_operand"]
 
 #: The int8-everywhere default; DittoPlan.low_bits and every kernel
 #: signature share this one constant.
@@ -157,10 +160,23 @@ def cuda_fn(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def launch_check(name: str, rc: int) -> None:
-    """Raise when a C entry returned a non-zero ``cudaGetLastError()``."""
+    """Raise when a C entry returned a non-zero ``cudaGetLastError()``, or
+    -1: a difference GEMM whose K needs more splits than a cluster holds."""
+    if rc == -1:
+        raise RuntimeError(f"{name}: K needs more class tiles than one thread-block "
+                           f"cluster of the kernel holds")
     if rc:
         msg = _lib.ditto_error_string(rc).decode() if _lib is not None else ""
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc} ({msg})")
+
+
+def diff_gemm_splits(batch: int, m: int, n: int, k: int) -> int:
+    """The K split the difference GEMMs' kernel launches a (batch, M, N, K)
+    product with on the current card (``choose_splits`` in
+    ``csrc/diff_gemm_sm90.cuh``, from the shape and the card's SM count)."""
+    rc = cuda_fn("ditto_diff_gemm_splits", [ctypes.c_int64] * 4)(batch, m, n, k)
+    launch_check("ditto_diff_gemm_splits", -1 if rc == 0 else -rc if rc < 0 else 0)
+    return rc
 
 
 def stream_ptr(t: torch.Tensor) -> int:

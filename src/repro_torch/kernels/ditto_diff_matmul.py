@@ -7,32 +7,44 @@ Replaces ``src/repro/kernels/ditto_diff_matmul.py: ditto_diff_matmul``
 ``_w_lane_pair`` over the ``int4_pack`` helpers), with and without
 ``y_prev`` and with W as (K, N) or, ``w_transposed``, as (N, K).
 
-Kernel (``csrc/ditto_diff_matmul.cu`` over ``csrc/tile_mma.cuh``): one
-256-thread block per 128 x 128 output tile, K staged through shared memory
-in 64-byte chunks, products on the int8 tensor cores with
-``mma.sync.m16n8k32``. Δ is recomputed from the int8 operands while a
-chunk is staged, so no Δ tensor lands in device memory. Δ lies in
-[-254, 254] and does not fit an int8 operand, so it is split exactly into
-lo = clamp(Δ, -127, 127) and hi = Δ - lo, both int8, and both products
-go into the same int32 accumulator; the block votes whether any hi is
-non-zero and skips the second product when none is (always for class-1
-tiles). A class-0 tile issues no load and no product. A leading batch dim
-runs as the grid's z axis: the two attention sub-operations of all
-(batch x heads) elements are one launch each.
+Kernel (``csrc/ditto_diff_matmul.cu`` over ``csrc/diff_gemm_sm90.cuh``):
+one 128-thread block (one warpgroup) per 64 x 128 output tile and K
+split, three blocks an SM. The block reads its row of tile classes once, compacts
+the live (class != 0) 128-K tiles into a list, and walks only their 64-K
+chunks through a 3-stage ring of raw x_t, x_prev and W bytes filled by
+``cp.async`` 16-byte copies, two chunks ahead of the product. Each thread
+builds its ``wgmma`` A fragments in registers from the staged bytes:
+Δ = x_t - x_prev lies in [-254, 254] and does not fit an int8 operand,
+so a fragment word with a lane outside [-127, 127] is split exactly into
+lo = clamp(Δ, -127, 127) and hi = Δ - lo, both int8, into the same int32
+accumulator; the warpgroup votes whether any hi lane is non-zero and
+skips the second product when none is. The products are
+``wgmma.m64n128k32`` s8 x s8 -> s32, A from registers and W from shared
+memory K-major, as int8 ``wgmma`` requires: the kernel takes W as (N, K)
+(``w_transposed``, as the compiled pass keeps its linear weights); the
+wrapper lays a (K, N) weight out so before the launch. Where a launch
+would leave SMs idle or walk a long K, the kernel splits K across the
+blocks of a thread-block cluster at 128-K tile boundaries (its choice,
+from the shape and the card's SM count, is
+:func:`repro_torch.kernels.common.diff_gemm_splits`); the blocks sum their
+partial tiles through distributed shared memory. Every block stages its
+output tile through shared memory and adds y_prev as it stores 16-byte
+vectors, a warp a whole row. Integer addition is associative, so the
+result is the same int32 bits for any split. A leading batch dim runs as
+the grid's z axis: the two attention sub-operations of all (batch x
+heads) elements are one launch each.
 
-``low_bits=4``: a class-1 chunk is staged as packed int4 x 2 words
-(``csrc/int4_pack.cuh``), 32 bytes a row instead of 64, and unpacked into
-the ``mma.sync`` operand as its fragments load; class-2 chunks keep the
-lo/hi split. The H100 has no int4 x int8 tensor-core product, so, as on
-the reference's v5e, the packed word is a storage format: it halves the
-shared-memory bytes of a low chunk, not its multiplies. The class-1
-verdict keeps every lane in the exact [-8, 7] range, so both branches give
-the same int32 result. These launches count in :data:`launches_int4`.
+``low_bits=4``: a class-1 chunk's lanes go through the int4 lane format
+(the pack -> unpack round trip of ``int4_pack``, in registers) and skip
+the split and the vote; class-2 chunks keep the lo/hi split. The H100 has
+no int4 x int8 tensor-core product, so, as on the reference's v5e, the
+packed word is a format, not fewer multiplies. The class-1 verdict keeps
+every lane in the exact [-8, 7] range, so both branches give the same
+int32 result. These launches count in :data:`launches_int4`.
 
-What bounds it on the H100: as for int8_matmul, bytes at the B = 2 shapes
-(the int32 y_prev read and y write dominate), and it does less work the
-more class-0 tiles the data has. This first version stages synchronously
-and uses ``mma.sync``; the measured time sits in PERF.md beside its bound.
+What bounds it on the H100: bytes at the B = 2 shapes (the int32 y_prev
+read and y write dominate), and it does less work the more class-0 tiles
+the data has. Its measured time sits in PERF.md beside its bound.
 
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.ditto_linear_step`
 zero-pads). On a CPU tensor the wrapper runs the plain version, which
@@ -91,21 +103,34 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
     if w_q.shape[:-2] != lead:
         raise ValueError(f"ditto_diff_matmul: batch dims differ: {tuple(x_t.shape)} vs "
                          f"{tuple(w_q.shape)}")
+    if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
+        w_q = w_q.transpose(-1, -2).contiguous()
     common.check_cuda_operand("ditto_diff_matmul x_t", x_t, torch.int8)
     common.check_cuda_operand("ditto_diff_matmul x_prev", x_prev, torch.int8)
     common.check_cuda_operand("ditto_diff_matmul w_q", w_q, torch.int8)
     common.check_cuda_operand("ditto_diff_matmul classes", classes, torch.int32)
     if y_prev is not None:
         common.check_cuda_operand("ditto_diff_matmul y_prev", y_prev, torch.int32)
-    out = torch.empty(lead + (m, n), dtype=torch.int32, device=x_t.device)
-    fn = common.cuda_fn("ditto_diff_matmul", _ARGTYPES)
-    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), w_q.data_ptr(),
-            None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
-            out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
-            (m // bm) * (k // bk), int(w_transposed), low_bits, common.stream_ptr(x_t))
-    common.launch_check("ditto_diff_matmul", rc)
+    out = launch(x_t, x_prev, w_q, y_prev, classes, low_bits)
     if low_bits == 4:
         launches_int4 += 1
     else:
         launches += 1
+    return out
+
+
+def launch(x_t, x_prev, w_nk, y_prev, classes, low_bits, splits=0) -> torch.Tensor:
+    """One launch of the C entry on checked operands, W (..., N, K); no
+    count. ``splits`` 0 is the kernel's own K split, a positive count forces
+    it (the parity of every split count in chip_smoke.py, the split sweep
+    of benchmarks/torch_diff_gemm_sweep.py)."""
+    (m, k), n = x_t.shape[-2:], w_nk.shape[-2]
+    lead = x_t.shape[:-2]
+    out = torch.empty(lead + (m, n), dtype=torch.int32, device=x_t.device)
+    fn = common.cuda_fn("ditto_diff_matmul", _ARGTYPES)
+    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), w_nk.data_ptr(),
+            None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
+            out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
+            (m // 128) * (k // 128), low_bits, splits, common.stream_ptr(x_t))
+    common.launch_check("ditto_diff_matmul", rc)
     return out

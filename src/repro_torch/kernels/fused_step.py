@@ -20,19 +20,23 @@ its class needs. It moves 2 bytes a Δ in and up to 1.5 out, so its bound
 is bytes.
 
 :func:`ditto_fused_matmul` replaces ``ditto_fused_matmul`` (Pallas body
-``_fused_kernel``). Kernel (``csrc/ditto_fused_matmul.cu``): one 256-thread
-block per 128 x 128 output tile that branches on the class of each K tile:
-class 0 loads nothing, class 1 loads the 32-byte-a-row ``dc`` chunk and W
-and multiplies the unpacked lanes, class 2 loads ``dc``, ``dh`` and W,
-rebuilds Δ while staging and splits it exactly into int8 lo / hi planes
-(the two-pass kernel's split) into one accumulator. Where the reference
+``_fused_kernel``). Kernel (``csrc/ditto_fused_matmul.cu``): the
+two-pass GEMM's mainloop (``csrc/diff_gemm_sm90.cuh``: live-tile list,
+3-stage ``cp.async`` ring, ``wgmma`` with A from registers and W
+K-major, K split over a cluster, the output tile staged for 16-byte
+stores) with its own producer of Δ. Per live 64-K chunk it stages only
+the planes the class needs: class 1 the ``dc`` chunk (32 bytes a row, the
+nibbles are Δ) and W, class 2 ``dc``, ``dh`` and W. Each thread rebuilds
+its fragment lanes in registers, sign-extending the nibbles (class 1) or
+forming Δ = lo + 16 * dh (class 2), which takes the two-pass kernel's
+exact lo / hi split where a lane leaves [-127, 127]. Where the reference
 remaps skipped blocks through :func:`hold_maps` so that the TPU pipeline
-elides their copies, a Hopper block simply does not issue the load. The
-reference adds y_prev after its kernel; here y_prev, when given, is added
-in the kernel's store of the output tile, which saves a full int32 read
-and write of the output, and the int32 result is the same. With
-``y_prev=None`` the wrapper returns the bare contribution. At the B = 2
-shapes the int32 output dominates the bytes, so its bound is bytes.
+elides their copies, a Hopper block never issues them: its list holds
+live tiles only. The reference adds y_prev after its kernel; here y_prev,
+when given, is added as the output tile is stored, which saves a full
+int32 read and write of the output, and the int32 result is the same.
+With ``y_prev=None`` the wrapper returns the bare contribution. At the
+B = 2 shapes the int32 output dominates the bytes, so its bound is bytes.
 
 :func:`hold_maps` is the reference's index-table construction as a plain
 function; nothing on the CUDA path uses it. ``kernels.dma_model`` replays
@@ -62,8 +66,7 @@ matmul_launches = 0
 
 _ENCODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_int,
                                                                      ctypes.c_void_p]
-_MATMUL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int,
-                                                                    ctypes.c_void_p]
+_MATMUL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_even(name: str, bk: int) -> None:
@@ -136,20 +139,32 @@ def ditto_fused_matmul(w_q: torch.Tensor, dcache: torch.Tensor, dhigh: torch.Ten
     if w_q.shape[:-2] != lead:
         raise ValueError(f"ditto_fused_matmul: batch dims differ: {tuple(dhigh.shape)} vs "
                          f"{tuple(w_q.shape)}")
+    if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
+        w_q = w_q.transpose(-1, -2).contiguous()
     common.check_cuda_operand("ditto_fused_matmul w_q", w_q, torch.int8)
     common.check_cuda_operand("ditto_fused_matmul dcache", dcache, torch.int8)
     common.check_cuda_operand("ditto_fused_matmul dhigh", dhigh, torch.int8)
     common.check_cuda_operand("ditto_fused_matmul classes", classes, torch.int32)
     if y_prev is not None:
         common.check_cuda_operand("ditto_fused_matmul y_prev", y_prev, torch.int32)
+    out = launch_matmul(w_q, dcache, dhigh, classes, y_prev)
+    matmul_launches += 1
+    return out
+
+
+def launch_matmul(w_nk, dcache, dhigh, classes, y_prev, splits=0) -> torch.Tensor:
+    """One launch of the fused GEMM's C entry on checked operands, W
+    (..., N, K); no count. ``splits`` as in
+    :func:`repro_torch.kernels.ditto_diff_matmul.launch`."""
+    (m, k), n = dhigh.shape[-2:], w_nk.shape[-2]
+    lead = dhigh.shape[:-2]
     out = torch.empty(lead + (m, n), dtype=torch.int32, device=dhigh.device)
     fn = common.cuda_fn("ditto_fused_matmul", _MATMUL_ARGTYPES)
-    rc = fn(w_q.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
+    rc = fn(w_nk.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
             None if y_prev is None else y_prev.data_ptr(), out.data_ptr(), math.prod(lead),
-            m, n, k, n * k, m * k, m * n, (m // bm) * (k // bk), int(w_transposed),
+            m, n, k, n * k, m * k, m * n, (m // 128) * (k // 128), splits,
             common.stream_ptr(dhigh))
     common.launch_check("ditto_fused_matmul", rc)
-    matmul_launches += 1
     return out
 
 

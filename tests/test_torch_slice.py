@@ -126,7 +126,7 @@ def test_plms_sampler_serves(inputs):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "benchmarks" / "torch_step_profile.py"]
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
     assert len(files) > 20
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
