@@ -1,17 +1,20 @@
-"""K-split sweep of the two difference GEMMs of the PyTorch/CUDA port.
+"""K-split sweep of the three GEMMs of the PyTorch/CUDA port.
 
     python3 benchmarks/torch_diff_gemm_sweep.py [--batch 2] [--mix full] [--reps 30] [--tag NAME]
 
 At every DiT-XL/2 main-path shape for a batch of ``--batch`` requests (the
 shapes of chip_smoke.py's parity phase at B = 2, W K-major as the compiled
-pass keeps it), it times ``ditto_diff_matmul`` (``low_bits=8``) and
-``ditto_fused_matmul`` with y_prev, with K split every way from 1 to 8
-(where K has that many 128-K class tiles) and with the kernel's own choice
-(``common.diff_gemm_splits``). ``--mix full``: Δ uniform in [-254, 254],
-so nearly every chunk takes the hi product; ``--mix mid``: Δ uniform in
-[-20, 20], class 2 without a hi product. Both keep one class-0 tile. Every
-forced split is held bit for bit against the kernel's own launch before it
-is timed. Times: CUDA events, median of ``--reps`` runs with the L2 cache
+pass keeps it), it times the two difference GEMMs, ``ditto_diff_matmul``
+(``low_bits=8``) and ``ditto_fused_matmul`` with y_prev, and the act GEMM
+``int8_matmul`` (at the shapes the act path gives it: every shape but the
+difference-only attention sub-op ``attn-dk``), with K split every way from
+1 to 8 (where K has that many 128-K class tiles) and with the kernel's own
+choice (``common.diff_gemm_splits``). ``--mix full``: Δ uniform in
+[-254, 254], so nearly every chunk takes the hi product; ``--mix mid``: Δ
+uniform in [-20, 20], class 2 without a hi product. Both keep one class-0
+tile; ``int8_matmul`` takes x_t as its x whatever the mix. Every forced
+split is held bit for bit against the kernel's own launch before it is
+timed. Times: CUDA events, median of ``--reps`` runs with the L2 cache
 cleared before each, as chip_smoke.py times a kernel alone.
 
 Prints one JSON line per (kernel, shape) with the times in microseconds,
@@ -37,6 +40,7 @@ from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
+from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
 
 TOKENS, D, MLP, HEADS, HEAD_DIM, OUT = 256, 1152, 4608, 16, 72, 16  # DiT-XL/2
 SPLITS = range(1, 9)
@@ -113,8 +117,11 @@ def main() -> int:
         kernels = {
             "ditto_diff_matmul": lambda s: k_diff.launch(x_t, x_p, w, y_prev, cls, 8, s),
             "ditto_fused_matmul": lambda s: k_fused.launch_matmul(w, dc, dh, cls_f, y_prev, s),
+            "int8_matmul": lambda s: k_int8.launch(x_t, w, s),
         }
         for kname, run in kernels.items():
+            if kname == "int8_matmul" and name == "attn-dk":  # a difference-only sub-op
+                continue
             want = run(0)
             us = {}
             for s in SPLITS:

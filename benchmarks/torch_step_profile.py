@@ -1,6 +1,6 @@
 """Where a compiled denoising step of the PyTorch/CUDA port spends its time.
 
-    python3 benchmarks/torch_step_profile.py [--policy act diff diff-fused] [--steps 8] [--short 4]
+    python3 benchmarks/torch_step_profile.py [--policy act diff diff-fused defo] [--steps 8] [--short 4]
 
 Serves DiT-XL/2 at B = 2 (random weights from a seed, adaLN ``mod`` weights
 refilled N(0, 0.02), as chip_smoke.py does) through
@@ -22,8 +22,16 @@ flow) — with the default ``collect_stats=True`` plan and with
   port's kernels and of the top device items, and the top host ops;
   and the device's idle share against ``step_ms``.
 
-Defo is left out: its modes depend on the timesteps of the calibration
-steps, which differ between the two lengths. Needs a CUDA card.
+Defo (``defo``: the two-pass flow under the Defo policy, whose act layers
+launch ``int8_matmul`` and diff layers the difference GEMMs) cannot be
+differenced: its modes depend on the timesteps of the calibration steps,
+which differ between the two lengths. It is read from one profiled
+``--steps`` call instead: the device activities from the first launch of
+a port kernel (the first compiled step's) to the end of the call, over
+the call's compiled steps (``window``). That leaves out the device work
+of the first compiled step before its first kernel and leaves in the
+call's few ops after the last step; its ``step_ms`` is not measured.
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -47,15 +55,15 @@ from repro_torch.nn import dit  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
 # the port's kernels, by a part of their __global__ function's name in csrc/:
-# the two difference GEMMs are diff_gemm_kernel<P> with producer P (the
-# packed-int4 branch runs inside diff_gemm_kernel<DiffProducer>)
-PORT_KERNELS = {"int8_matmul": "int8_matmul_kernel", "diff_encode": "diff_encode_kernel",
+# the three GEMMs are diff_gemm_kernel<P> with producer P (the packed-int4
+# branch runs inside diff_gemm_kernel<DiffProducer>)
+PORT_KERNELS = {"int8_matmul": "ActProducer", "diff_encode": "diff_encode_kernel",
                 "ditto_diff_matmul": "DiffProducer",
                 "diff_encode_fused": "diff_encode_fused_kernel",
                 "ditto_fused_matmul": "FusedProducer"}
 # run name -> (policy, kernel knobs of the plan)
 RUNS = {"act": ("act", {}), "diff": ("diff", {}), "diff-low_bits4": ("diff", dict(low_bits=4)),
-        "diff-fused": ("diff", dict(fused=True))}
+        "diff-fused": ("diff", dict(fused=True)), "defo": ("defo", {})}
 
 
 def serve(inputs, plan: DittoPlan) -> float:
@@ -67,19 +75,61 @@ def serve(inputs, plan: DittoPlan) -> float:
     return time.perf_counter() - t0
 
 
-def profiled(inputs, plan: DittoPlan) -> tuple[dict, dict]:
+def profiled(inputs, plan: DittoPlan, window: bool = False) -> tuple[dict, dict, int]:
     """Per name, (device ms, count) of every device activity and the host
-    ops' self time in ms, over one serve_records call."""
+    ops' self time in ms, over one serve_records call, and its compiled
+    steps (the steps without an eager record: a compiled step records
+    nothing without statistics). ``window``: only the device activities
+    from the first launch of a port kernel on."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        serve(inputs, plan)
+        torch.cuda.synchronize()
+        records, _, _ = harness.serve_records(*inputs, plan, device="cuda")
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if window:
+        t0 = min(e.time_range.start for e in events
+                 if any(fn in e.name for fn in PORT_KERNELS.values()))
+        events = [e for e in events if e.time_range.start >= t0]
     device: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = device.get(e.name, (0.0, 0))
-            device[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for e in events:
+        ms, n = device.get(e.name, (0.0, 0))
+        device[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
             if e.device_type == DeviceType.CPU}
-    return device, host
+    eager = {r["step"] for r in records if not r.get("compiled")}
+    return device, host, plan.steps - len(eager)
+
+
+def summary(per_step: dict, host: dict) -> dict:
+    """The device figures of one compiled step from its per-name (device
+    ms, count), and its top host ops."""
+    kernels = {}
+    for port, fn in PORT_KERNELS.items():
+        hits = [v for name, v in per_step.items() if fn in name]
+        kernels[port] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
+    return {
+        "device_busy_ms": sum(ms for ms, _ in per_step.values()),
+        "device_activities_per_step": sum(n for _, n in per_step.values()),
+        "port_kernels_ms_launches_per_step": kernels,
+        "top_device_ms_launches_per_step": sorted(
+            ((name[:70], ms, n) for name, (ms, n) in per_step.items()),
+            key=lambda t: t[1], reverse=True)[:10],
+        "top_host_ms_per_step": sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:12],
+    }
+
+
+def window_profile(inputs, run: str, collect_stats: bool, steps: int) -> dict:
+    """One compiled step of a ``--steps`` call, averaged over the call's
+    compiled steps from the first port kernel on (no host ops: the host's
+    steps are not separated)."""
+    policy, knobs = RUNS[run]
+    plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats, **knobs)
+    serve(inputs, plan)  # warm-up
+    device, _, n = profiled(inputs, plan, window=True)
+    per_step = {name: (ms / n, c / n) for name, (ms, c) in device.items()}
+    return {"run": run, "collect_stats": collect_stats, "steps": [steps], "window": True,
+            "compiled_steps": n, "step_ms": None,
+            **summary(per_step, {})}
 
 
 def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
@@ -94,29 +144,18 @@ def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
             walls[plan.steps].append(serve(inputs, plan))
     d = steps - short
     step_ms = (statistics.median(walls[steps]) - statistics.median(walls[short])) / d * 1e3
-    (dev_l, host_l), (dev_s, host_s) = profiled(inputs, long_plan), profiled(inputs, short_plan)
+    (dev_l, host_l, _), (dev_s, host_s, _) = (profiled(inputs, long_plan),
+                                              profiled(inputs, short_plan))
     per_step = {}
     for name in dev_l.keys() | dev_s.keys():
         (ms_l, n_l), (ms_s, n_s) = dev_l.get(name, (0.0, 0)), dev_s.get(name, (0.0, 0))
         per_step[name] = ((ms_l - ms_s) / d, (n_l - n_s) / d)
-    busy_ms = sum(ms for ms, _ in per_step.values())
-    kernels = {}
-    for port, fn in PORT_KERNELS.items():
-        hits = [v for name, v in per_step.items() if fn in name]
-        kernels[port] = (sum(ms for ms, _ in hits), sum(n for _, n in hits))
     host = {k: (host_l.get(k, 0.0) - host_s.get(k, 0.0)) / d
             for k in host_l.keys() | host_s.keys()}
-    return {
-        "run": run, "collect_stats": collect_stats, "steps": [steps, short],
-        "step_ms": step_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / step_ms,
-        "device_activities_per_step": sum(n for _, n in per_step.values()),
-        "port_kernels_ms_launches_per_step": kernels,
-        "top_device_ms_launches_per_step": sorted(
-            ((name[:70], ms, n) for name, (ms, n) in per_step.items()),
-            key=lambda t: t[1], reverse=True)[:10],
-        "top_host_ms_per_step": sorted(host.items(), key=lambda kv: kv[1], reverse=True)[:12],
-    }
+    out = summary(per_step, host)
+    return {"run": run, "collect_stats": collect_stats, "steps": [steps, short],
+            "step_ms": step_ms, "device_idle_share": 1.0 - out["device_busy_ms"] / step_ms,
+            **out}
 
 
 def main() -> int:
@@ -141,8 +180,11 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
     for run in args.policy:
         for collect_stats in (True, False):
-            print(json.dumps(step_profile(inputs, run, collect_stats, args.steps, args.short,
-                                          args.reps)), flush=True)
+            if run == "defo":  # its modes differ between two lengths: one call's window
+                row = window_profile(inputs, run, collect_stats, args.steps)
+            else:
+                row = step_profile(inputs, run, collect_stats, args.steps, args.short, args.reps)
+            print(json.dumps(row), flush=True)
     return 0
 
 

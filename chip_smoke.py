@@ -15,9 +15,13 @@ Phases (any failure raises and the script exits non-zero):
              tile), with y_prev given and absent: the two-pass kernels (the diff
              GEMM at ``low_bits`` 8 and 4) and the fused pair (the Δ-cache
              compared on the tiles whose class gates it in; the fused GEMM
-             also against the two-pass plain version). The three difference
-             GEMMs also run with K forced to every split count 1-8 at wd's
-             shape, over the full and sparse mixes.
+             also against the two-pass plain version). ``int8_matmul``
+             runs at every shape over a random and two extreme-value
+             operand mixes (lanes of -128 and +-127; x and W all -128
+             against W of -128 and of 127, the largest |int32| sums). All
+             four GEMMs also run with K forced to every split count 1-8 at
+             wd's shape (the difference GEMMs over the full and sparse
+             mixes, ``int8_matmul`` over its three).
 3. slice   — ``serve_records`` at DiT-XL/2 full width (random weights from
              a seed), 2 requests, 20 DDIM steps, under policy act, diff and
              defo, then under (diff, ``low_bits=4``), (diff, ``fused``) and
@@ -32,7 +36,10 @@ Phases (any failure raises and the script exits non-zero):
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
-             where one PyTorch call computes the same function, that call.
+             where one PyTorch call computes the same function, that call
+             (``torch._int_mm`` for a 2-D ``int8_matmul``, timed on W both
+             as a (K, N) contiguous copy and as the transposed view of the
+             K-major weight; ``library_ms`` is the faster).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -180,6 +187,30 @@ def delta_pair(g, shape, mix):
     return x_t, (x_t.to(torch.int32) - d).clamp(-127, 127).to(torch.int8)
 
 
+INT8_MIXES = ("random", "extreme", "corner")
+
+
+def int8_operands(g, lead, m, k, n, mix, w_transposed=True):
+    """(x, W) int8 on the card for ``int8_matmul``; W (N, K) when
+    ``w_transposed``, else (K, N). random: uniform over all 256 values;
+    extreme: every lane -128, -127 or 127; corner: extreme, but x's first
+    half of rows all -128 and W all -128 for the first half of the output
+    columns and 127 for the rest, so those outputs reach +128 * 128 * K and
+    -128 * 127 * K."""
+    def draw(shape):
+        if mix == "random":
+            return torch.randint(-128, 128, shape, generator=g, device=DEVICE, dtype=torch.int8)
+        pick = torch.randint(0, 3, shape, generator=g, device=DEVICE)
+        return torch.tensor([-128, -127, 127], dtype=torch.int8, device=DEVICE)[pick]
+
+    x, w = draw(lead + (m, k)), draw(lead + (n, k))
+    if mix == "corner":
+        x[..., : m // 2, :] = -128
+        w[..., : n // 2, :] = -128
+        w[..., n // 2:, :] = 127
+    return x, (w if w_transposed else w.transpose(-1, -2).contiguous())
+
+
 def phase_parity() -> dict:
     g = torch.Generator(device=DEVICE).manual_seed(1)
     max_err = dict.fromkeys(KERNELS, 0)
@@ -197,11 +228,12 @@ def phase_parity() -> dict:
         checks += 1
 
     for lead, m, k, n, wt in PATH_SHAPES:
+        for mix in INT8_MIXES:
+            x, w = int8_operands(g, lead, m, k, n, mix, wt)
+            hold("int8_matmul", k_int8.int8_matmul(x, w, w_transposed=wt),
+                 ref.int8_matmul_ref(x, w, w_transposed=wt))
         w = torch.randint(-127, 128, lead + ((n, k) if wt else (k, n)), generator=g,
                           device=DEVICE, dtype=torch.int8)
-        x = torch.randint(-127, 128, lead + (m, k), generator=g, device=DEVICE, dtype=torch.int8)
-        hold("int8_matmul", k_int8.int8_matmul(x, w, w_transposed=wt),
-             ref.int8_matmul_ref(x, w, w_transposed=wt))
         for mix in MIXES:
             x_t, x_p = delta_pair(g, lead + (m, k), mix)
             cls = k_encode.diff_encode(x_t, x_p)
@@ -230,10 +262,15 @@ def phase_parity() -> dict:
         splits = common.diff_gemm_splits(math.prod(lead), m, n, k)
         say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt} K splits={splits}")
 
-    # every K split count a cluster can take (the path launches 1, 4 and 8),
+    # every K split count a cluster can take (the path launches 1, 3 and 5),
     # forced at wd's shape: the DSMEM reduction's share of the tile's
     # vectors differs for each count
     lead, m, k, n = SPLIT_SHAPE
+    for mix in INT8_MIXES:
+        x, w = int8_operands(g, lead, m, k, n, mix)
+        want = ref.int8_matmul_ref(x, w, w_transposed=True)
+        for splits in range(1, MAX_SPLITS + 1):
+            hold("int8_matmul", k_int8.launch(x, w, splits), want)
     w = torch.randint(-127, 128, lead + (n, k), generator=g, device=DEVICE, dtype=torch.int8)
     for mix in ("full", "sparse"):
         x_t, x_p = delta_pair(g, lead + (m, k), mix)
@@ -521,10 +558,14 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
                    library_ms=None, slice_calls=cap.calls[key])
         x, w = args[:2]
         if name == "int8_matmul" and x.dim() == 2:
-            # torch._int_mm takes W as (K, N): a K-major weight is laid out so
-            # before the clock starts
-            w_kn = w.t().contiguous() if kw.get("w_transposed", False) else w
-            row["library_ms"] = median_ms(lambda: torch._int_mm(x, w_kn), flush)
+            # torch._int_mm takes W as (K, N): once as a (K, N) contiguous
+            # copy, once as the transposed view of the K-major weight (the
+            # layout cuBLASLt's int8 path reads), both made before the clock
+            w_nk = w if kw.get("w_transposed", False) else w.t().contiguous()
+            w_kn = w_nk.t().contiguous()
+            row["library_ms_kn_copy"] = median_ms(lambda: torch._int_mm(x, w_kn), flush)
+            row["library_ms_nk_view"] = median_ms(lambda: torch._int_mm(x, w_nk.t()), flush)
+            row["library_ms"] = min(row["library_ms_kn_copy"], row["library_ms_nk_view"])
         rows.append(row)
         bounds[key] = row["bound_ms"]
         say("time " + json.dumps(row))

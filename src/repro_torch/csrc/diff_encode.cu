@@ -4,7 +4,7 @@
 // One block per tile (grid (K/128, M/128, batch)); each of the 256 threads
 // reads four 16-byte vectors of both operands, the block reduces max|delta|
 // by warp shuffle then shared memory. M and K are multiples of 128.
-#include "tile_mma.cuh"
+#include "lanes.cuh"
 
 namespace {
 

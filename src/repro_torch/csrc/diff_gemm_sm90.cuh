@@ -1,11 +1,12 @@
-// Shared sm_90a mainloop of the two difference GEMMs (ditto_diff_matmul.cu,
-// ditto_fused_matmul.cu):
+// Shared sm_90a mainloop of the three int8 GEMMs: the two difference GEMMs
+// (ditto_diff_matmul.cu, ditto_fused_matmul.cu)
 //
 //   out[b] = y_prev[b] + delta[b] @ W[b]          (exact int32)
 //
 // where delta is rebuilt in registers from raw operand bytes by a producer
-// (DiffProducer: x_t - x_prev; FusedProducer: the Δ-cache lo + 16 * dh) and
-// W[b] is K-major, (N, K): int8 wgmma reads B only so.
+// (DiffProducer: x_t - x_prev; FusedProducer: the Δ-cache lo + 16 * dh),
+// and the act GEMM (int8_matmul.cu: ActProducer, A = x as it is, no
+// y_prev). W[b] is K-major, (N, K): int8 wgmma reads B only so.
 //
 // Geometry. One 128-thread block (one warpgroup) computes a 64 x 128 output
 // tile over one K range with wgmma.m64n128k32 s8 x s8 -> s32, A from
@@ -19,7 +20,8 @@
 // Classes. A block reads its row of class tiles once and compacts the
 // live ones (class != 0) into a list in shared memory; the pipeline walks
 // only live 64-K chunks, so no chunk waits on a class read and no class-0
-// byte is ever staged.
+// byte is ever staged. A producer without classes (P::CLASSED false: the
+// act GEMM) reads none and lists every class tile of its split.
 //
 // Pipeline. A STAGES-deep ring of raw operand bytes (the producer's A
 // bytes and the 64 x 128 W chunk) is filled with cp.async 16-byte copies,
@@ -30,7 +32,9 @@
 // whose four lanes are all in [-127, 127] is its own lo plane with hi = 0;
 // a word with a lane outside takes the exact split lo = clamp(Δ, ±127),
 // hi = Δ - lo (split_delta4). The warpgroup votes whether any hi lane of the
-// chunk is non-zero and issues the hi product only then.
+// chunk is non-zero and issues the hi product only then. The act GEMM's A
+// is the staged x itself (P::A_SMEM): wgmma reads it from shared memory
+// through a second descriptor, as it reads W, and no thread touches it.
 //
 // Shared-memory layout. Every staged plane keeps its rows whole (64 bytes
 // of K, 32 for the packed dc plane) with the 16-byte columns XOR-swizzled
@@ -73,10 +77,10 @@ constexpr int W_BYTES = GK * GN;   // one W chunk, 8 KB
 constexpr int C_PITCH = GN + 8;    // int32 pitch of the staged output tile
 
 struct GemmArgs {
-  const int8_t* a0;  // x_t | dc
-  const int8_t* a1;  // x_prev | dh
+  const int8_t* a0;  // x_t | dc | x
+  const int8_t* a1;  // x_prev | dh | unused
   const int8_t* w;
-  const int32_t* classes;
+  const int32_t* classes;  // null without classes (P::CLASSED false)
   const int32_t* y_prev;  // may be null
   int32_t* out;
   int64_t m, n, k;
@@ -122,10 +126,10 @@ __device__ __forceinline__ int row32(int r, int k) {
   return r * 32 + (((k >> 4) ^ ((r >> 2) & 1)) << 4) + (k & 15);
 }
 
-// Descriptor of a K-major B tile of 64-byte rows in the 64-byte swizzle
-// (layout type 2): 8-row groups 512 bytes apart (stride byte offset); the
-// leading byte offset is unused for a swizzled K-major operand. p points at
-// K byte 0 or 32 of row 0.
+// Descriptor of a K-major operand tile (B: W's 128 rows; A_SMEM: x's 64)
+// of 64-byte rows in the 64-byte swizzle (layout type 2): 8-row groups 512
+// bytes apart (stride byte offset); the leading byte offset is unused for
+// a swizzled K-major operand. p points at K byte 0 or 32 of row 0.
 __device__ __forceinline__ uint64_t b_desc(const void* p) {
   return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
          (uint64_t(512 >> 4) << 32) | (uint64_t(2) << 62);
@@ -164,6 +168,17 @@ __device__ __forceinline__ void wgmma_s8(int32_t (&d)[64], const uint32_t (&a)[4
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
         "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d += A(64 x 32, descriptor) @ B(32 x 128, descriptor)
+__device__ __forceinline__ void wgmma_s8_ss(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // Keep the compiler from moving accumulator reads across wgmma_wait_all.
@@ -218,6 +233,10 @@ __device__ __forceinline__ void load_w(uint8_t* dst, const GemmArgs& a, const in
 }
 
 // P (the producer) supplies:
+//   CLASSED                      whether a.classes gates the class tiles;
+//   A_SMEM                       whether A is its staged bytes as they are
+//                                (64 swizzled 64-byte rows), read by wgmma
+//                                from shared memory; frags is then unused;
 //   A_BYTES                      its raw bytes per stage;
 //   load(stage, a, b, m0, k0, cls)  cp.async of those bytes for one chunk;
 //   frags(stage, a, cls, row0, t4, lo, hi, any) -> bool
@@ -254,11 +273,11 @@ __global__ void __launch_bounds__(GTHREADS, 3)
   const int8_t* w = a.w + b * a.sw;
 
   if (warp == 0) {  // compact this split's live class tiles
-    const int32_t* cls_row = a.classes + b * a.sc + (m0 / CLASS_M) * kt;
+    const int32_t* cls_row = P::CLASSED ? a.classes + b * a.sc + (m0 / CLASS_M) * kt : nullptr;
     int cnt = 0;
     for (int base = kb; base < ke; base += 32) {
       const int t = base + lane;
-      const int c = t < ke ? cls_row[t] : 0;
+      const int c = t >= ke ? 0 : P::CLASSED ? cls_row[t] : 1;
       const uint32_t live = __ballot_sync(0xffffffffu, c != 0);
       if (c != 0) s_live[cnt + __popc(live & ((1u << lane) - 1u))] = t | (c << 16);
       cnt += __popc(live);
@@ -292,16 +311,22 @@ __global__ void __launch_bounds__(GTHREADS, 3)
     __syncthreads();  // chunk c landed; every thread is done with chunk c - 1
     const uint8_t* st = smem + (c % STAGES) * L::STAGE_BYTES;
     const uint8_t* wb = st + P::A_BYTES;
-    const int cls = s_live[c >> 1] >> 16;
-    uint32_t lo[2][4], hi[2][4], any = 0;
-    const bool may_hi = P::frags(st, a, cls, row0, t4, lo, hi, any);
     const uint64_t d0 = b_desc(wb), d1 = b_desc(wb + 32);
-    wgmma_fence();
-    wgmma_s8(acc, lo[0], d0);
-    wgmma_s8(acc, lo[1], d1);
-    if (may_hi && __syncthreads_or(any != 0)) {  // the vote overlaps the lo product
-      wgmma_s8(acc, hi[0], d0);
-      wgmma_s8(acc, hi[1], d1);
+    if constexpr (P::A_SMEM) {  // A read by wgmma from the staged rows
+      wgmma_fence();
+      wgmma_s8_ss(acc, b_desc(st), d0);
+      wgmma_s8_ss(acc, b_desc(st + 32), d1);
+    } else {
+      const int cls = s_live[c >> 1] >> 16;
+      uint32_t lo[2][4], hi[2][4], any = 0;
+      const bool may_hi = P::frags(st, a, cls, row0, t4, lo, hi, any);
+      wgmma_fence();
+      wgmma_s8(acc, lo[0], d0);
+      wgmma_s8(acc, lo[1], d1);
+      if (may_hi && __syncthreads_or(any != 0)) {  // the vote overlaps the lo product
+        wgmma_s8(acc, hi[0], d0);
+        wgmma_s8(acc, hi[1], d1);
+      }
     }
     wgmma_commit();
     // refill the stage chunk c - 1 used while the tensor cores work on chunk c
@@ -379,10 +404,11 @@ __global__ void __launch_bounds__(GTHREADS, 3)
 // grid that leaves SMs idle takes the split with the shortest walk that
 // keeps at most two blocks an SM, if that at least halves the walk and
 // saves SPLIT_SAVES class tiles or more (a cluster's reduction costs about
-// that). Fitted to the split sweep of benchmarks/torch_diff_gemm_sweep.py
-// at DiT-XL/2's shapes for 1, 2 and 4 requests (PERF.md). Raised where one
-// split would hold more class tiles than the live list; 0 when a cluster
-// is too few.
+// that). Fitted to the difference GEMMs' split sweep
+// (benchmarks/torch_diff_gemm_sweep.py) at DiT-XL/2's shapes for 1, 2
+// and 4 requests; the act GEMM shares it (its sweep is in PERF.md).
+// Raised where one split would hold more class tiles than the live list;
+// 0 when a cluster is too few.
 inline int choose_splits(int64_t tiles, int64_t kt, int sms) {
   int64_t s = 1;
   if (tiles >= sms) {

@@ -36,6 +36,8 @@ using namespace ditto;
 using namespace ditto::sm90;
 
 struct DiffProducer {
+  static constexpr bool CLASSED = true;
+  static constexpr bool A_SMEM = false;
   static constexpr int XP_OFF = GM * GK;           // x_t, then x_prev: swizzled 64-byte rows
   static constexpr int A_BYTES = 2 * GM * GK;
 
@@ -116,8 +118,9 @@ extern "C" int ditto_diff_matmul(const void* xt, const void* xp, const void* w,
   return launch_diff_gemm<DiffProducer>(a, batch, stream);
 }
 
-// The K split both difference GEMMs launch a (batch, m, n, k) product with
-// on the current device (0 or negative: see launch_splits).
+// The K split the three GEMMs (both difference GEMMs and int8_matmul)
+// launch a (batch, m, n, k) product with on the current device (0 or
+// negative: see launch_splits).
 extern "C" int ditto_diff_gemm_splits(int64_t batch, int64_t m, int64_t n, int64_t k) {
   return launch_splits(batch, m, n, k);
 }

@@ -29,6 +29,8 @@ using namespace ditto;
 using namespace ditto::sm90;
 
 struct FusedProducer {
+  static constexpr bool CLASSED = true;
+  static constexpr bool A_SMEM = false;
   static constexpr int DH_OFF = GM * GK / 2;  // dc: swizzled 32-byte rows, then dh: 64-byte
   static constexpr int A_BYTES = DH_OFF + GM * GK;
 

@@ -9,7 +9,7 @@
 // unpack it in registers (diff_gemm_sm90.cuh: nibble_lanes, spread_nibbles).
 #pragma once
 
-#include "tile_mma.cuh"
+#include "lanes.cuh"
 
 namespace ditto {
 

@@ -1,0 +1,37 @@
+// Byte-lane helpers of the encodes and the difference GEMMs: byte_s8 (the
+// encode kernels) and split_delta4 (the difference GEMMs of
+// diff_gemm_sm90.cuh), with the class-tile extent and the encodes' block
+// size.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace ditto {
+
+constexpr int TILE_K = 128;   // K extent of one diff_encode class tile (= bk)
+constexpr int THREADS = 256;  // threads of an encode block
+
+__device__ __forceinline__ int byte_s8(uint32_t w, int shift) {
+  return int32_t(w << (24 - shift)) >> 24;  // sign-extend the byte at bit `shift`
+}
+
+// Split four differences d[0..3], each in [-254, 254], exactly into two
+// int8 planes one lane a byte: lo = clamp(d, -127, 127) and hi = d - lo
+// (|hi| <= 127). Returns nonzero iff any hi lane is nonzero.
+__device__ __forceinline__ uint32_t split_delta4(const int (&d)[4], uint32_t& lo,
+                                                 uint32_t& hi) {
+  uint32_t any = 0;
+  lo = hi = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int l = max(-127, min(127, d[i]));
+    const int h = d[i] - l;
+    any |= uint32_t(h);
+    lo |= (uint32_t(l) & 0xffu) << (8 * i);
+    hi |= (uint32_t(h) & 0xffu) << (8 * i);
+  }
+  return any;
+}
+
+}  // namespace ditto

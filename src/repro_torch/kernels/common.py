@@ -7,8 +7,9 @@
 * :func:`pad2` — zero-padding the last two dims up to the tile grid (the
   128-tile padding contract of every kernel module).
 * :func:`validate_low_bits` — the ``low_bits`` domain check.
-* :func:`diff_gemm_splits` — the K split the difference GEMMs' kernel
-  (``csrc/diff_gemm_sm90.cuh``) chooses for a launch on the card.
+* :func:`diff_gemm_splits` — the K split the GEMMs' shared kernel
+  (``csrc/diff_gemm_sm90.cuh``: both difference GEMMs and ``int8_matmul``)
+  chooses for a launch on the card.
 * :func:`cuda_fn` / :func:`build_library` — build the CUDA sources under
   ``csrc`` with ``nvcc`` into one shared library with a plain C interface
   and bind its entry points with ``ctypes``. The library is named after a
@@ -161,7 +162,7 @@ def cuda_fn(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 def launch_check(name: str, rc: int) -> None:
     """Raise when a C entry returned a non-zero ``cudaGetLastError()``, or
-    -1: a difference GEMM whose K needs more splits than a cluster holds."""
+    -1: a GEMM whose K needs more splits than a cluster holds."""
     if rc == -1:
         raise RuntimeError(f"{name}: K needs more class tiles than one thread-block "
                            f"cluster of the kernel holds")
@@ -171,9 +172,10 @@ def launch_check(name: str, rc: int) -> None:
 
 
 def diff_gemm_splits(batch: int, m: int, n: int, k: int) -> int:
-    """The K split the difference GEMMs' kernel launches a (batch, M, N, K)
-    product with on the current card (``choose_splits`` in
-    ``csrc/diff_gemm_sm90.cuh``, from the shape and the card's SM count)."""
+    """The K split the GEMMs' shared kernel (both difference GEMMs and
+    ``int8_matmul``) launches a (batch, M, N, K) product with on the
+    current card (``choose_splits`` in ``csrc/diff_gemm_sm90.cuh``, from the
+    shape and the card's SM count)."""
     rc = cuda_fn("ditto_diff_gemm_splits", [ctypes.c_int64] * 4)(batch, m, n, k)
     launch_check("ditto_diff_gemm_splits", -1 if rc == 0 else -rc if rc < 0 else 0)
     return rc

@@ -3,24 +3,34 @@
 Replaces ``src/repro/kernels/int8_matmul.py: int8_matmul`` (Pallas body
 ``_kernel``): (M, K) int8 @ (K, N) int8 -> (M, N) int32, exact.
 
-Kernel (``csrc/int8_matmul.cu`` over ``csrc/tile_mma.cuh``): one 256-thread
-block per 128 x 128 output tile, K staged through shared memory in 64-byte
-chunks, products on the int8 tensor cores with ``mma.sync.m16n8k32``
-(s8 x s8 -> s32). The weight may arrive (K, N) — transposed into the
-tensor-core "col" layout while it is staged — or (N, K) with
-``w_transposed`` (the attention act path contracts Q against K rows with
-no transposed copy). A leading batch dim runs as the grid's z axis, one
-launch for all (batch x heads) elements of an attention layer.
+Kernel (``csrc/int8_matmul.cu`` over ``csrc/diff_gemm_sm90.cuh``, the
+mainloop of the two difference GEMMs): one 128-thread block (one
+warpgroup) per 64 x 128 output tile and K split, three blocks an SM. The
+x and W chunks (64 K bytes a row) stream through a 3-stage ring of
+64-byte-swizzled rows filled by ``cp.async`` 16-byte copies, two chunks
+ahead of the product, and ``wgmma.m64n128k32`` s8 x s8 -> s32 reads both
+operands from there: x as it is (a -128 lane is exact; A from shared
+memory was 1-8 % faster than fragments built in registers) and W
+K-major, as int8 ``wgmma`` requires. The kernel takes W as (N, K)
+(``w_transposed``, as the compiled pass keeps its linear weights and as
+attention passes its K rows); the wrapper lays a (K, N) weight out so
+before the launch. Where a launch would leave SMs idle or walk a long K,
+the kernel splits K across the blocks of a thread-block cluster (its own
+choice, ``choose_splits``) and sums the partial tiles through distributed
+shared memory, bit-identically. Every block stages its output tile
+through shared memory and stores it in 16-byte vectors, a warp a whole
+row. A leading batch dim runs as the grid's z axis, one launch for all
+(batch x heads) elements of an attention layer.
 
 What bounds it on the H100: at the main path's DiT-XL/2 shapes at B = 2
 (512 token rows, K and N of 1152..6912) a GEMM does 170-360 int8
-operations per byte it must move (int8 weights in, int32 results out),
+operations per byte it must move (int8 operands in, int32 results out),
 below the card's balance point of 1979e12 / 3.35e12 = 590, so its bound
-is bytes, and the int32 output is the largest stream. This first version
-is simple rather than fast: synchronous staging (no cp.async or TMA
-pipeline), ``mma.sync`` rather than ``wgmma``, and one block per output
-tile, which leaves most of the 132 SMs idle at 36 tiles; the measured
-time sits in PERF.md beside its bound.
+is bytes, and the int32 output is the largest stream; at 36-288 output
+tiles the launch and the pipeline's fill weigh as much. The 64-row tiles
+give the grid enough blocks, the ring keeps loads in flight behind the
+tensor cores, and the split shortens a long K walk. Its measured time
+sits in PERF.md beside its bound.
 
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.int8_act_matmul`
 zero-pads, exactly as the reference's ops wrapper does). On a CPU tensor
@@ -57,15 +67,27 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *, bm: int = 128, bn: int 
         return int8_matmul_ref(x_q, w_q, w_transposed=w_transposed)
     if (bm, bn, bk) != (128, 128, 128):
         raise ValueError(f"int8_matmul: the CUDA kernel tiles by 128, got ({bm}, {bn}, {bk})")
-    lead = x_q.shape[:-2]
-    if w_q.shape[:-2] != lead:
+    if w_q.shape[:-2] != x_q.shape[:-2]:
         raise ValueError(f"int8_matmul: batch dims differ: {tuple(x_q.shape)} vs {tuple(w_q.shape)}")
+    if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
+        w_q = w_q.transpose(-1, -2).contiguous()
     common.check_cuda_operand("int8_matmul x_q", x_q, torch.int8)
     common.check_cuda_operand("int8_matmul w_q", w_q, torch.int8)
-    out = torch.empty(lead + (m, n), dtype=torch.int32, device=x_q.device)
-    fn = common.cuda_fn("ditto_int8_matmul", _ARGTYPES)
-    rc = fn(x_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), math.prod(lead), m, n, k,
-            m * k, n * k, m * n, int(w_transposed), common.stream_ptr(x_q))
-    common.launch_check("int8_matmul", rc)
+    out = launch(x_q, w_q)
     launches += 1
+    return out
+
+
+def launch(x, w_nk, splits=0) -> torch.Tensor:
+    """One launch of the C entry on checked operands, W (..., N, K); no
+    count. ``splits`` 0 is the kernel's own K split, a positive count forces
+    it (the parity of every split count in chip_smoke.py, the split sweep
+    of benchmarks/torch_diff_gemm_sweep.py)."""
+    (m, k), n = x.shape[-2:], w_nk.shape[-2]
+    lead = x.shape[:-2]
+    out = torch.empty(lead + (m, n), dtype=torch.int32, device=x.device)
+    fn = common.cuda_fn("ditto_int8_matmul", _ARGTYPES)
+    rc = fn(x.data_ptr(), w_nk.data_ptr(), out.data_ptr(), math.prod(lead), m, n, k,
+            m * k, n * k, m * n, splits, common.stream_ptr(x))
+    common.launch_check("int8_matmul", rc)
     return out

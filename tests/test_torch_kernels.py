@@ -62,16 +62,27 @@ def test_constants_match_reference():
     assert common.DEFAULT_LOW_BITS == REF_DEFAULT_LOW_BITS
 
 
-@pytest.mark.parametrize("m,k,n", [(96, 128, 160), (160, 96, 128), (128, 160, 96)])
+# off-grid shapes, then the act path's padding cases: attention's head-dim
+# K = 72, final.out's N = 16, mod's M = 2 (the batch), and a leading batch
+# dim of 4 (attention's batch x heads, one launch) held per element
+ACT_SHAPES = [pytest.param(*s, id="-".join(map(str, (*s[0], *s[1:])))) for s in [
+    ((), 96, 128, 160), ((), 160, 96, 128), ((), 128, 160, 96),
+    ((), 40, 72, 96), ((), 96, 160, 16), ((), 2, 160, 96), ((4,), 48, 72, 40)]]
+
+
+@pytest.mark.parametrize("lead,m,k,n", ACT_SHAPES)
 @pytest.mark.parametrize("w_transposed", [False, True])
-def test_int8_act_matmul_matches_pallas(m, k, n, w_transposed):
-    rng = np.random.default_rng(m + 7 * k + n + w_transposed)
-    x = _i8(rng, (m, k))
-    w = _i8(rng, (n, k) if w_transposed else (k, n))
-    want = np.asarray(rops.int8_act_matmul(jnp.asarray(x), jnp.asarray(w.T if w_transposed else w)))
+def test_int8_act_matmul_matches_pallas(lead, m, k, n, w_transposed):
+    rng = np.random.default_rng(len(lead) + m + 7 * k + n + w_transposed)
+    x = _i8(rng, lead + (m, k), -128, 127)
+    w = _i8(rng, lead + ((n, k) if w_transposed else (k, n)), -128, 127)
     got = ops.int8_act_matmul(_t(x), _t(w), w_transposed=w_transposed)
-    np.testing.assert_array_equal(got.numpy(), want)
-    if not w_transposed:  # the scaled fp32 act path on top of it
+    assert got.shape == lead + (m, n) and got.dtype == torch.int32
+    for i in np.ndindex(*lead):
+        w_kn = w[i].T if w_transposed else w[i]
+        want = np.asarray(rops.int8_act_matmul(jnp.asarray(x[i]), jnp.asarray(w_kn)))
+        np.testing.assert_array_equal(got[i].numpy(), want)
+    if not w_transposed and not lead:  # the scaled fp32 act path on top of it
         xs = np.float32(0.03)
         ws = rng.random(n).astype(np.float32)
         np.testing.assert_array_equal(
