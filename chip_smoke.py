@@ -10,12 +10,16 @@ Phases (any failure raises and the script exits non-zero):
              bit for bit (``torch.equal``), at every DiT-XL/2 main-path
              shape at B = 2 (the linear layers with W K-major, as the
              compiled pass keeps it, and (K, N)), over zero / low /
-             boundary / full / sparse Δ mixes (sparse: classes 0 / 1 / 2
-             interleaved along K, K splits and a block row without a live
-             tile), with y_prev given and absent: the two-pass kernels (the diff
+             boundary / full / sparse / lone Δ mixes (sparse: classes 0 /
+             1 / 2 interleaved along K, K splits and a block row without a
+             live tile; lone: one lane of +-7 or +-8 decides each tile's
+             class, on a row at a block edge of every cluster size), with
+             y_prev given and absent: the two-pass kernels (the diff
              GEMM at ``low_bits`` 8 and 4) and the fused pair (the Δ-cache
              compared on the tiles whose class gates it in; the fused GEMM
-             also against the two-pass plain version). ``int8_matmul``
+             also against the two-pass plain version). Both encodes also
+             run at every shape and mix with each tile forced over a
+             cluster of 1, 2, 4 and 8 blocks. ``int8_matmul``
              runs at every shape over a random and two extreme-value
              operand mixes (lanes of -128 and +-127; x and W all -128
              against W of -128 and of 127, the largest |int32| sums). All
@@ -136,7 +140,11 @@ PATH_SHAPES = [s + (wt,) for wt in (True, False) for s in LINEAR_SHAPES] + [
     ((32,), 256, 256, 128, True),  # pv act; pv diff sub-op dQ (N = 72)
     ((32,), 128, 256, 256, True),  # pv diff sub-op dK (M = 72)
 ]
-MIXES = ("zero", "low", "edge", "full", "sparse")
+MIXES = ("zero", "low", "edge", "full", "sparse", "lone")
+# the rows of a class tile that are a first or a last row of a block at
+# some cluster size: 0, 15, 16, 31, ..., 112, 127 (the 8-block slabs'
+# edges, the 4- and 2-block slabs' among them)
+LONE_ROWS = [r for s in range(8) for r in (16 * s, 16 * s + 15)]
 # the shape (wd's, W K-major) at which the diff GEMMs run every K split count
 SPLIT_SHAPE = ((), 512, 4608, 1152)
 MAX_SPLITS = 8  # a portable thread-block cluster
@@ -159,6 +167,21 @@ def sparse_classes(lead, gm, kt):
     return cls
 
 
+def lone_delta(shape):
+    """Δ of the lone mix, (*lead, M, K) int32: one non-zero lane a class
+    tile, 7 or 8 alternating by tile, its sign alternating every two tiles,
+    every fifth tile all zero; from tile to tile the lane walks the rows of
+    LONE_ROWS and the columns of the tile."""
+    lead, (m, k) = shape[:-2], shape[-2:]
+    nb, gm, gk = math.prod(lead), m // 128, k // 128
+    t = torch.arange(nb * gm * gk, device=DEVICE)  # tiles in (batch, row, column) order
+    val = (7 + t % 2) * (1 - 2 * (t // 2 % 2)) * (t % 5 != 4)
+    rows = torch.tensor(LONE_ROWS, device=DEVICE)[t % len(LONE_ROWS)]
+    d = torch.zeros((nb, gm, 128, gk, 128), dtype=torch.int32, device=DEVICE)
+    d[t // (gm * gk), t // gk % gm, rows, t % gk, t * 37 % 128] = val.to(torch.int32)
+    return d.reshape(shape)
+
+
 def delta_pair(g, shape, mix):
     """(x_t, x_prev) int8 on the card whose Δ follows ``mix``; a full mix
     also keeps one class-0 tile so skipping is exercised; a sparse mix
@@ -174,6 +197,9 @@ def delta_pair(g, shape, mix):
         mid = torch.randint(-20, 21, shape, generator=g, device=DEVICE, dtype=torch.int32)
         low = torch.randint(-7, 8, shape, generator=g, device=DEVICE, dtype=torch.int32)
         d = torch.where(cls == 2, torch.where(wide, full, mid), torch.where(cls == 1, low, 0))
+    elif mix == "lone":
+        x_t = x_t.clamp(-100, 100)  # x_prev = x_t - Δ needs no clamp
+        d = lone_delta(shape)
     elif mix == "zero":
         d = torch.zeros(shape, dtype=torch.int32, device=DEVICE)
     elif mix == "low":
@@ -227,6 +253,16 @@ def phase_parity() -> dict:
             raise AssertionError(f"{name} disagrees with its plain version (max |err| {err})")
         checks += 1
 
+    def hold_fused(got, want):
+        """The fused encode's classes in full, its Δ-cache on the tiles whose
+        class gates it in."""
+        (cls, dc, dh), (want_c, want_dc, want_dh) = got, want
+        hold("diff_encode_fused", cls, want_c)
+        live = ref.tile_mask(want_c, (128, 64), lambda c: c >= 1)
+        full = ref.tile_mask(want_c, (128, 128), lambda c: c == 2)
+        hold("diff_encode_fused", dc[live], want_dc[live])
+        hold("diff_encode_fused", dh[full], want_dh[full])
+
     for lead, m, k, n, wt in PATH_SHAPES:
         for mix in INT8_MIXES:
             x, w = int8_operands(g, lead, m, k, n, mix, wt)
@@ -236,17 +272,17 @@ def phase_parity() -> dict:
                           device=DEVICE, dtype=torch.int8)
         for mix in MIXES:
             x_t, x_p = delta_pair(g, lead + (m, k), mix)
+            want_cls = ref.diff_encode_ref(x_t, x_p, (128, 128))
+            want_fused = ref.diff_encode_fused_ref(x_t, x_p, (128, 128))
             cls = k_encode.diff_encode(x_t, x_p)
-            hold("diff_encode", cls, ref.diff_encode_ref(x_t, x_p, (128, 128)))
+            hold("diff_encode", cls, want_cls)
+            cls_f, dc, dh = k_fused.diff_encode_fused(x_t, x_p)
+            hold_fused((cls_f, dc, dh), want_fused)
+            for c in common.ENCODE_CLUSTERS:  # each tile forced over c blocks
+                hold("diff_encode", k_encode.launch(x_t, x_p, c), want_cls)
+                hold_fused(k_fused.launch_encode(x_t, x_p, c), want_fused)
             y_prev = torch.randint(-2**24, 2**24, lead + (m, n), generator=g, device=DEVICE,
                                    dtype=torch.int32)
-            cls_f, dc, dh = k_fused.diff_encode_fused(x_t, x_p)
-            want_c, want_dc, want_dh = ref.diff_encode_fused_ref(x_t, x_p, (128, 128))
-            hold("diff_encode_fused", cls_f, want_c)
-            live = ref.tile_mask(cls_f, (128, 64), lambda c: c >= 1)
-            full = ref.tile_mask(cls_f, (128, 128), lambda c: c == 2)
-            hold("diff_encode_fused", dc[live], want_dc[live])  # the gated-in tiles only
-            hold("diff_encode_fused", dh[full], want_dh[full])
             bare = ref.ditto_fused_matmul_ref(w, dc, dh, cls_f, w_transposed=wt)
             for yp in (y_prev, None):
                 want = ref.ditto_diff_matmul_ref(x_t, x_p, w, yp, cls, w_transposed=wt)
@@ -260,7 +296,10 @@ def phase_parity() -> dict:
                 hold("ditto_fused_matmul", got, bare if yp is None else bare + yp)
                 hold("ditto_fused_matmul", got, want)  # and the two-pass function
         splits = common.diff_gemm_splits(math.prod(lead), m, n, k)
-        say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt} K splits={splits}")
+        cluster = common.encode_cluster(math.prod(lead) * (m // 128) * (k // 128),
+                                        common.sm_count(torch.device(DEVICE)))
+        say(f"parity ok  lead={lead} M={m} K={k} N={n} w_transposed={wt} K splits={splits} "
+            f"encode cluster={cluster}")
 
     # every K split count a cluster can take (the path launches 1, 3 and 5),
     # forced at wd's shape: the DSMEM reduction's share of the tile's

@@ -13,28 +13,18 @@
 
 namespace ditto {
 
-// Pack two lanes into one byte (bits 0-7 of the result). Unsigned
-// arithmetic: a left shift of a negative int is undefined in C++17.
-__device__ __forceinline__ uint32_t pack_int4_pair(int even, int odd) {
-  return ((uint32_t(odd) & 0xfu) << 4) | (uint32_t(even) & 0xfu);
-}
-
-// The even (low) lane of the byte at bit `shift` of w, sign-extended.
-__device__ __forceinline__ int unpack_int4_lo(uint32_t w, int shift) {
-  return int(((w >> shift) & 0xfu) ^ 8u) - 8;
+// The low nibbles of the 4 byte lanes of w in 16 bits, lane i in bits
+// 4i .. 4i + 3 (the even lane of each byte pair in the low nibble).
+__device__ __forceinline__ uint32_t pack_nibbles4(uint32_t w) {
+  w &= 0x0f0f0f0fu;
+  w = (w | (w >> 4)) & 0x00ff00ffu;
+  return (w | (w >> 8)) & 0xffffu;
 }
 
 // Pack the 16 int8 lanes of one 16-byte vector into 8 bytes.
 __device__ __forceinline__ uint2 pack_int4_x16(uint4 v) {
-  const uint32_t in[4] = {v.x, v.y, v.z, v.w};
-  uint32_t out[2] = {0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = pack_int4_pair(byte_s8(in[i], 0), byte_s8(in[i], 8));
-    const uint32_t hi = pack_int4_pair(byte_s8(in[i], 16), byte_s8(in[i], 24));
-    out[i >> 1] |= (lo | (hi << 8)) << ((i & 1) * 16);
-  }
-  return make_uint2(out[0], out[1]);
+  return make_uint2(pack_nibbles4(v.x) | (pack_nibbles4(v.y) << 16),
+                    pack_nibbles4(v.z) | (pack_nibbles4(v.w) << 16));
 }
 
 }  // namespace ditto

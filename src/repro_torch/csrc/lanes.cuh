@@ -1,16 +1,12 @@
-// Byte-lane helpers of the encodes and the difference GEMMs: byte_s8 (the
-// encode kernels) and split_delta4 (the difference GEMMs of
-// diff_gemm_sm90.cuh), with the class-tile extent and the encodes' block
-// size.
+// Byte-lane helpers of the fused encode and the difference GEMMs: byte_s8
+// (diff_encode_fused.cu, int4_pack.cuh, the GEMMs) and split_delta4 (the
+// difference GEMMs of diff_gemm_sm90.cuh).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace ditto {
-
-constexpr int TILE_K = 128;   // K extent of one diff_encode class tile (= bk)
-constexpr int THREADS = 256;  // threads of an encode block
 
 __device__ __forceinline__ int byte_s8(uint32_t w, int shift) {
   return int32_t(w << (24 - shift)) >> 24;  // sign-extend the byte at bit `shift`

@@ -10,6 +10,9 @@
 * :func:`diff_gemm_splits` — the K split the GEMMs' shared kernel
   (``csrc/diff_gemm_sm90.cuh``: both difference GEMMs and ``int8_matmul``)
   chooses for a launch on the card.
+* :func:`encode_cluster` — the thread-block cluster the encodes
+  (``csrc/encode_sm90.cuh``) split each class tile over, and
+  :func:`sm_count`, the card's SMs it is chosen for.
 * :func:`cuda_fn` / :func:`build_library` — build the CUDA sources under
   ``csrc`` with ``nvcc`` into one shared library with a plain C interface
   and bind its entry points with ``ctypes``. The library is named after a
@@ -19,6 +22,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
-           "diff_gemm_splits", "resolve_device",
+           "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
+           "resolve_device",
            "library_path", "build_library", "cuda_fn", "launch_check", "stream_ptr",
            "check_cuda_operand"]
 
@@ -162,10 +167,12 @@ def cuda_fn(name: str, argtypes: list) -> ctypes._CFuncPtr:
 
 def launch_check(name: str, rc: int) -> None:
     """Raise when a C entry returned a non-zero ``cudaGetLastError()``, or
-    -1: a GEMM whose K needs more splits than a cluster holds."""
+    -1: a thread-block cluster the kernel cannot take (a GEMM whose K needs
+    more splits than a cluster holds, a K split or an encode cluster size
+    it does not have)."""
     if rc == -1:
-        raise RuntimeError(f"{name}: K needs more class tiles than one thread-block "
-                           f"cluster of the kernel holds")
+        raise RuntimeError(f"{name}: the kernel cannot take this launch's thread-block "
+                           f"cluster (the size asked for, or the class tiles K needs)")
     if rc:
         msg = _lib.ditto_error_string(rc).decode() if _lib is not None else ""
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc} ({msg})")
@@ -179,6 +186,25 @@ def diff_gemm_splits(batch: int, m: int, n: int, k: int) -> int:
     rc = cuda_fn("ditto_diff_gemm_splits", [ctypes.c_int64] * 4)(batch, m, n, k)
     launch_check("ditto_diff_gemm_splits", -1 if rc == 0 else -rc if rc < 0 else 0)
     return rc
+
+
+#: Blocks of a cluster an encode can split a class tile over: the portable
+#: cluster sizes that divide a tile's 128 rows (``csrc/encode_sm90.cuh``).
+ENCODE_CLUSTERS = (1, 2, 4, 8)
+
+
+def encode_cluster(tiles: int, sms: int) -> int:
+    """The cluster size an encode launch of ``tiles`` class tiles (batch
+    included) takes on a card of ``sms`` SMs: the largest whose grid of
+    ``tiles * C`` blocks gives no SM a second block, at least 1. Fitted to
+    benchmarks/torch_encode_sweep.py at DiT-XL/2's shapes (PERF.md)."""
+    return max(c for c in ENCODE_CLUSTERS if c == 1 or tiles * c <= sms)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -6,17 +6,23 @@ Replaces ``src/repro/kernels/diff_encode.py: diff_encode`` (Pallas body
 (M/128, K/128), the map ``ditto_diff_matmul`` consumes to skip class-0
 tiles.
 
-Kernel (``csrc/diff_encode.cu``): one 256-thread block per tile; each
-thread reads four 16-byte vectors of both operands, and the block reduces
-max|Δ| by warp shuffle then shared memory and writes one int32. A leading
-batch dim runs as the grid's z axis (all heads of an attention layer in
-one launch).
+Kernel (``csrc/diff_encode.cu`` over ``csrc/encode_sm90.cuh``): each
+tile is split over a thread-block cluster of C blocks (1, 2, 4 or 8);
+block r loads rows [r·128/C, (r+1)·128/C) of both operands in 16-byte
+vectors, reduces max|Δ| by warp shuffle, and the cluster reduces the
+blocks' maxima through distributed shared memory; block 0 writes the
+int32 class. A leading batch dim runs as the grid's z axis (all heads of
+an attention layer in one launch).
 
 What bounds it on the H100: it reads 2 bytes and does a few integer
 operations per element, so its bound is bytes (2·M·K over 3.35 TB/s).
-At the main path's shapes the inputs are small (0.6-2.4 MB), so launch
-latency and the 36-144 blocks a launch has, against 132 SMs, decide its
-time; the measured time sits in PERF.md beside its bound.
+At the main path's shapes the inputs are small (0.6-2.4 MB) and a launch
+has 9-144 tiles against 132 SMs, so the latency of one block's load
+round trip and reduction decides its time. The cluster spreads a tile
+over C SMs, so each block waits on 1/C of the bytes:
+:func:`repro_torch.kernels.common.encode_cluster` takes the largest C
+whose grid gives no SM a second block. The measured time sits in PERF.md
+beside its bound.
 
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.encode_classes`
 zero-pads both operands identically, so padding is class 0). On a CPU
@@ -36,7 +42,7 @@ from .ref import diff_encode_ref
 #: Kernel launches so far (chip_smoke.py zeroes it and reads it around a run).
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def diff_encode(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
@@ -53,11 +59,22 @@ def diff_encode(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
         raise ValueError(f"diff_encode: the CUDA kernel tiles by 128, got ({bm}, {bk})")
     common.check_cuda_operand("diff_encode x_t", x_t, torch.int8)
     common.check_cuda_operand("diff_encode x_prev", x_prev, torch.int8)
-    lead = x_t.shape[:-2]
-    out = torch.empty(lead + (m // bm, k // bk), dtype=torch.int32, device=x_t.device)
-    fn = common.cuda_fn("ditto_diff_encode", _ARGTYPES)
-    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), out.data_ptr(), math.prod(lead), m, k, m * k,
-            (m // bm) * (k // bk), common.LOW_BIT_MAX, common.stream_ptr(x_t))
-    common.launch_check("diff_encode", rc)
+    out = launch(x_t, x_prev)
     launches += 1
+    return out
+
+
+def launch(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0) -> torch.Tensor:
+    """One launch of the C entry on checked operands; no count. ``cluster``
+    0 takes :func:`repro_torch.kernels.common.encode_cluster`'s size; 1, 2,
+    4 or 8 forces it (the parity of every size in chip_smoke.py, the sweep
+    of benchmarks/torch_encode_sweep.py)."""
+    (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
+    batch, gm, gk = math.prod(lead), m // 128, k // 128
+    out = torch.empty(lead + (gm, gk), dtype=torch.int32, device=x_t.device)
+    cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
+    fn = common.cuda_fn("ditto_diff_encode", _ARGTYPES)
+    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), out.data_ptr(), batch, m, k, m * k, gm * gk,
+            common.LOW_BIT_MAX, cluster, common.stream_ptr(x_t))
+    common.launch_check("diff_encode", rc)
     return out

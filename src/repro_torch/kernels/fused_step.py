@@ -13,11 +13,14 @@ and the two-plane Δ-cache, exact for every Δ:
   (|Δ| <= 254, so dh is in [-16, 16]).
 
 Writes are gated by class: class-0 tiles write neither plane, class-1
-tiles skip ``dh``. Kernel (``csrc/diff_encode_fused.cu``): one 256-thread
-block per 128 x 128 tile, which keeps its 64 elements a thread of both
-operands in registers while it reduces max|Δ| and then writes the planes
-its class needs. It moves 2 bytes a Δ in and up to 1.5 out, so its bound
-is bytes.
+tiles skip ``dh``. Kernel (``csrc/diff_encode_fused.cu`` over
+``csrc/encode_sm90.cuh``, the two-pass encode's cluster design): each
+128 x 128 tile is split over a thread-block cluster of C blocks; every
+block keeps its 128/C rows of both operands in registers while the
+cluster reduces max|Δ| through distributed shared memory, then writes
+those rows of the planes the class needs, so a tile's stores are spread
+over C SMs (C from :func:`repro_torch.kernels.common.encode_cluster`). It
+moves 2 bytes a Δ in and up to 1.5 out, so its bound is bytes.
 
 :func:`ditto_fused_matmul` replaces ``ditto_fused_matmul`` (Pallas body
 ``_fused_kernel``). Kernel (``csrc/ditto_fused_matmul.cu``): the
@@ -64,8 +67,8 @@ __all__ = ["diff_encode_fused", "ditto_fused_matmul", "hold_maps"]
 encode_launches = 0
 matmul_launches = 0
 
-_ENCODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_int,
-                                                                     ctypes.c_void_p]
+_ENCODE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
 _MATMUL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_void_p]
 
 
@@ -92,16 +95,26 @@ def diff_encode_fused(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
         raise ValueError(f"diff_encode_fused: the CUDA kernel tiles by 128, got ({bm}, {bk})")
     common.check_cuda_operand("diff_encode_fused x_t", x_t, torch.int8)
     common.check_cuda_operand("diff_encode_fused x_prev", x_prev, torch.int8)
-    lead = x_t.shape[:-2]
-    classes = torch.empty(lead + (m // bm, k // bk), dtype=torch.int32, device=x_t.device)
+    out = launch_encode(x_t, x_prev)
+    encode_launches += 1
+    return out
+
+
+def launch_encode(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the fused encode's C entry on checked operands; no
+    count. ``cluster`` as in :func:`repro_torch.kernels.diff_encode.launch`."""
+    (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
+    batch, gm, gk = math.prod(lead), m // 128, k // 128
+    classes = torch.empty(lead + (gm, gk), dtype=torch.int32, device=x_t.device)
     dc = torch.empty(lead + (m, k // 2), dtype=torch.int8, device=x_t.device)
     dh = torch.empty(lead + (m, k), dtype=torch.int8, device=x_t.device)
+    cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
     fn = common.cuda_fn("ditto_diff_encode_fused", _ENCODE_ARGTYPES)
     rc = fn(x_t.data_ptr(), x_prev.data_ptr(), classes.data_ptr(), dc.data_ptr(),
-            dh.data_ptr(), math.prod(lead), m, k, m * k, (m // bm) * (k // bk),
-            common.LOW_BIT_MAX, common.stream_ptr(x_t))
+            dh.data_ptr(), batch, m, k, m * k, gm * gk, common.LOW_BIT_MAX, cluster,
+            common.stream_ptr(x_t))
     common.launch_check("diff_encode_fused", rc)
-    encode_launches += 1
     return classes, dc, dh
 
 

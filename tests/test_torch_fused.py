@@ -23,6 +23,8 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.kernels import dma_model, fused_step, int4_pack, ops, ref  # noqa: E402
 from repro_torch.kernels.common import pad2  # noqa: E402
 
+from _torch_mixes import delta_pair  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -37,31 +39,16 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _delta_pair(rng, shape, mix):
-    """(x_t, x_prev) int8 whose Δ follows ``mix``: zero | low (|Δ| <= 7) |
-    edge (|Δ| in {7, 8}) | full."""
-    x_t = rng.integers(-100, 101, size=shape).astype(np.int8)
-    if mix == "zero":
-        d = np.zeros(shape, np.int32)
-    elif mix == "low":
-        d = rng.integers(-7, 8, size=shape)
-    elif mix == "edge":
-        d = rng.choice([-8, -7, 7, 8], size=shape)
-    else:
-        d = rng.integers(-254, 255, size=shape)
-    return x_t, np.clip(x_t.astype(np.int32) - d, -127, 127).astype(np.int8)
-
-
 def _mixed_rows(rng, m, k):
     """Rows in bands of every class, plus a whole class-0 tile and a whole
     class-1 tile, so every class occurs as a tile class."""
-    x_t, x_p = _delta_pair(rng, (m, k), "full")
+    x_t, x_p = delta_pair(rng, (m, k), "full")
     for r0, mix in zip(range(0, m, 32), ["zero", "low", "edge", "full", "zero", "low",
                                          "low", "zero", "full"]):
-        x_t[r0:r0 + 32], x_p[r0:r0 + 32] = _delta_pair(rng, (min(32, m - r0), k), mix)
+        x_t[r0:r0 + 32], x_p[r0:r0 + 32] = delta_pair(rng, (min(32, m - r0), k), mix)
     x_p[:128, :128] = x_t[:128, :128]
     if m > 128:
-        x_t[128:256, :128], x_p[128:256, :128] = _delta_pair(rng, (min(128, m - 128), 128), "low")
+        x_t[128:256, :128], x_p[128:256, :128] = delta_pair(rng, (min(128, m - 128), 128), "low")
     return x_t, x_p
 
 
@@ -111,13 +98,13 @@ def test_ditto_linear_step_packed_and_fused_match_pallas(shape, with_y_prev, w_t
     assert {0, 1, 2} <= set(got_c.flatten().tolist())
 
 
-@pytest.mark.parametrize("mix", ["zero", "low", "edge", "full", "mixed"])
+@pytest.mark.parametrize("mix", ["zero", "low", "edge", "full", "mixed", "lone"])
 def test_diff_encode_fused_matches_pallas(mix):
     """Classes in full; ``dc`` on class >= 1 tiles and ``dh`` on class-2
     tiles; and Δ = lo + (dh << 4) rebuilt from the port's planes."""
     rng = np.random.default_rng(len(mix))
     x_t, x_p = (_mixed_rows(rng, 288, 160) if mix == "mixed"
-                else _delta_pair(rng, (288, 160), mix))
+                else delta_pair(rng, (288, 160), mix))
     xt, xp = pad2(_t(x_t), 128, 128), pad2(_t(x_p), 128, 128)
     cls, dc, dh = fused_step.diff_encode_fused(xt, xp)
     rcls, rdc, rdh = (np.asarray(a) for a in rfused.diff_encode_fused(
@@ -156,7 +143,7 @@ def test_low_bits4_plain_packs_class1_tiles():
     a tile marked class 1 whose Δ does not fit a nibble keeps only each
     lane's low nibble, as the kernel's packing does."""
     rng = np.random.default_rng(11)
-    x_t, x_p = _delta_pair(rng, (128, 256), "full")
+    x_t, x_p = delta_pair(rng, (128, 256), "full")
     xt, xp = _t(x_t), _t(x_p)
     w = _t(rng.integers(-127, 128, size=(256, 128)).astype(np.int8))
     cls = torch.tensor([[1, 2]], dtype=torch.int32)
@@ -173,8 +160,8 @@ def test_attention_delta_batched_matches_pallas_per_element(flow):
     """One batched port call == the reference's per-element calls."""
     rng = np.random.default_rng(3)
     b, m, n, d = 3, 96, 130, 40
-    q_t, q_p = _delta_pair(rng, (b, m, d), "low")
-    k_t, k_p = _delta_pair(rng, (b, n, d), "full")
+    q_t, q_p = delta_pair(rng, (b, m, d), "low")
+    k_t, k_p = delta_pair(rng, (b, n, d), "full")
     k_p[1] = k_t[1]  # one element whose ΔK tiles are all class 0
     s_prev = rng.integers(-2**20, 2**20, size=(b, m, n)).astype(np.int32)
     got, (cls_dk, cls_dq) = ops.attention_delta(_t(q_t), _t(q_p), _t(k_t), _t(k_p), _t(s_prev),

@@ -24,6 +24,8 @@ from repro_torch.kernels import ditto_diff_matmul as pdiff_mm  # noqa: E402
 from repro_torch.kernels import fused_step as pfused  # noqa: E402
 from repro_torch.kernels import int8_matmul as pint8  # noqa: E402
 
+from _torch_mixes import delta_pair  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _one_thread():
@@ -36,21 +38,6 @@ def _one_thread():
 
 def _i8(rng, shape, lo=-127, hi=127):
     return rng.integers(lo, hi + 1, size=shape).astype(np.int8)
-
-
-def _delta_pair(rng, shape, mix):
-    """(x_t, x_prev) int8 whose Δ follows ``mix``: zero | low (|Δ| <= 7) |
-    edge (|Δ| in {7, 8}) | full."""
-    x_t = _i8(rng, shape, -100, 100)
-    if mix == "zero":
-        d = np.zeros(shape, np.int32)
-    elif mix == "low":
-        d = rng.integers(-7, 8, size=shape)
-    elif mix == "edge":
-        d = rng.choice([-8, -7, 7, 8], size=shape)
-    else:
-        d = rng.integers(-254, 255, size=shape)
-    return x_t, np.clip(x_t.astype(np.int32) - d, -127, 127).astype(np.int8)
 
 
 def _t(a):
@@ -90,18 +77,47 @@ def test_int8_act_matmul_matches_pallas(lead, m, k, n, w_transposed):
             np.asarray(rops.quantized_matmul(jnp.asarray(x), jnp.asarray(w), xs, jnp.asarray(ws))))
 
 
-MIXES = ["zero", "low", "edge", "full"]
+MIXES = ["zero", "low", "edge", "full", "lone"]
 
 
 @pytest.mark.parametrize("mix", MIXES)
 def test_encode_classes_matches_pallas(mix):
     rng = np.random.default_rng(MIXES.index(mix))
-    x_t, x_p = _delta_pair(rng, (160, 288), mix)
+    x_t, x_p = delta_pair(rng, (160, 288), mix)
     if mix == "edge":  # one tile exactly at the low/full boundary each way
         x_p[:128, :128] = np.clip(x_t[:128, :128].astype(np.int32) - 7, -127, 127)
     want = np.asarray(rops.encode_classes(jnp.asarray(x_t), jnp.asarray(x_p)))
     got = ops.encode_classes(_t(x_t), _t(x_p))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# encode launches of the main path at B = 2 (class tiles, batch included,
+# after the ops wrappers' 128-padding) -> the cluster size each takes on a
+# 132-SM H100, the fastest or within 4 % of it in the sweep of
+# benchmarks/torch_encode_sweep.py with the operands as the step finds them
+PATH_ENCODE_CLUSTERS = {
+    "wq/wk/wv/wo/wi/final.out x (512, 1152)": (36, 2),
+    "mod x (2 -> 128, 1152)": (9, 8),
+    "wd x (512, 4608)": (144, 1),
+    "attention q / k sub-ops 32 x (256, 72 -> 128)": (64, 2),
+    "attention pv dK 32 x (72 -> 128, 256)": (64, 2),
+    "attention pv dQ 32 x (256, 256)": (128, 1),
+}
+
+
+@pytest.mark.parametrize("sms", [66, 114, 132])
+def test_encode_cluster_rule(sms):
+    """A size the kernels have (1, 2, 4 or 8, each dividing a tile's 128
+    rows), the largest whose grid gives no SM a second block (1 where even
+    that does), and the path's choices."""
+    for tiles in range(1, 600):
+        c = common.encode_cluster(tiles, sms)
+        assert c in common.ENCODE_CLUSTERS and c in (1, 2, 4, 8) and 128 % c == 0
+        assert c == 1 or tiles * c <= sms
+        assert c == 8 or tiles * 2 * c > sms
+    if sms == 132:
+        got = {name: common.encode_cluster(t, sms) for name, (t, _) in PATH_ENCODE_CLUSTERS.items()}
+        assert got == {name: c for name, (_, c) in PATH_ENCODE_CLUSTERS.items()}
 
 
 @pytest.mark.parametrize("shape", [(160, 288, 96), (288, 160, 130)])
@@ -111,9 +127,9 @@ def test_ditto_linear_step_matches_pallas(shape, with_y_prev, w_transposed):
     m, k, n = shape
     rng = np.random.default_rng(m * k + n + 2 * with_y_prev + w_transposed)
     # rows mix every class: zero, low, edge and full bands
-    x_t, x_p = _delta_pair(rng, (m, k), "full")
+    x_t, x_p = delta_pair(rng, (m, k), "full")
     for r0, mix in zip(range(0, m, 32), ["zero", "low", "edge", "full", "zero"]):
-        x_t[r0:r0 + 32], x_p[r0:r0 + 32] = _delta_pair(rng, (min(32, m - r0), k), mix)
+        x_t[r0:r0 + 32], x_p[r0:r0 + 32] = delta_pair(rng, (min(32, m - r0), k), mix)
     x_p[:128, :128] = x_t[:128, :128]  # one whole class-0 tile
     w = _i8(rng, (n, k) if w_transposed else (k, n))
     y_prev = rng.integers(-2**20, 2**20, size=(m, n)).astype(np.int32) if with_y_prev else None
@@ -132,8 +148,8 @@ def test_attention_delta_batched_matches_pallas_per_element():
     """One batched port call == the reference's per-element calls."""
     rng = np.random.default_rng(3)
     b, m, n, d = 3, 96, 130, 40
-    q_t, q_p = _delta_pair(rng, (b, m, d), "low")
-    k_t, k_p = _delta_pair(rng, (b, n, d), "full")
+    q_t, q_p = delta_pair(rng, (b, m, d), "low")
+    k_t, k_p = delta_pair(rng, (b, n, d), "full")
     s_prev = rng.integers(-2**20, 2**20, size=(b, m, n)).astype(np.int32)
     got, (cls_dk, cls_dq) = ops.attention_delta(_t(q_t), _t(q_p), _t(k_t), _t(k_p), _t(s_prev))
     for i in range(b):
@@ -148,7 +164,7 @@ def test_plain_diff_matmul_skips_class0_tiles_like_the_kernel():
     """The plain version is the kernel's function for ANY class map: a
     tile marked 0 contributes nothing even if its Δ is not zero."""
     rng = np.random.default_rng(5)
-    x_t, x_p = _delta_pair(rng, (256, 256), "full")
+    x_t, x_p = delta_pair(rng, (256, 256), "full")
     w = _t(_i8(rng, (256, 128)))
     cls = torch.tensor([[0, 2], [2, 0]], dtype=torch.int32)
     got = pdiff_mm.ditto_diff_matmul(_t(x_t), _t(x_p), w, None, cls)
