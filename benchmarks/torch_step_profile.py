@@ -22,6 +22,13 @@ flow) — with the default ``collect_stats=True`` plan and with
   port's kernels and of the top device items, and the top host ops;
   and the device's idle share against ``step_ms``.
 
+Each run is profiled on two paths: ``uncached``, a
+``serve_records`` call that runs the compiled step op by op, and
+``session``, the same request through a ``repro_torch.serve.ServeSession``
+whose runner cache replays one captured CUDA graph a step (its graph is
+captured by the warm-up call, so the timed calls only replay; both lengths
+share it, since the step count is not part of the runner key).
+
 Defo (``defo``: the two-pass flow under the Defo policy, whose act layers
 launch ``int8_matmul`` and diff layers the difference GEMMs) cannot be
 differenced: its modes depend on the timesteps of the calibration steps,
@@ -39,6 +46,7 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -52,6 +60,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
+from repro_torch.serve import ServeSession  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
 # the port's kernels, by a part of their __global__ function's name in csrc/:
@@ -66,24 +75,33 @@ RUNS = {"act": ("act", {}), "diff": ("diff", {}), "diff-low_bits4": ("diff", dic
         "diff-fused": ("diff", dict(fused=True)), "defo": ("defo", {})}
 
 
-def serve(inputs, plan: DittoPlan) -> float:
-    """Wall seconds of one serve_records call."""
+def call(inputs, plan: DittoPlan, session: ServeSession | None) -> list:
+    """One serve_records call (``session`` None) or one ServeSession.serve of
+    the same request; returns its records."""
+    if session is None:
+        return harness.serve_records(*inputs, plan, device="cuda")[0]
+    return session.serve(*inputs[3:], plan=plan).records
+
+
+def serve(inputs, plan: DittoPlan, session: ServeSession | None = None) -> float:
+    """Wall seconds of one call."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    harness.serve_records(*inputs, plan, device="cuda")
+    call(inputs, plan, session)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
-def profiled(inputs, plan: DittoPlan, window: bool = False) -> tuple[dict, dict, int]:
+def profiled(inputs, plan: DittoPlan, window: bool = False,
+             session: ServeSession | None = None) -> tuple[dict, dict, int]:
     """Per name, (device ms, count) of every device activity and the host
-    ops' self time in ms, over one serve_records call, and its compiled
-    steps (the steps without an eager record: a compiled step records
-    nothing without statistics). ``window``: only the device activities
-    from the first launch of a port kernel on."""
+    ops' self time in ms, over one call, and its compiled steps (the steps
+    without an eager record: a compiled step records nothing without
+    statistics). ``window``: only the device activities from the first
+    launch of a port kernel on."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        records, _, _ = harness.serve_records(*inputs, plan, device="cuda")
+        records = call(inputs, plan, session)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if window:
@@ -118,34 +136,41 @@ def summary(per_step: dict, host: dict) -> dict:
     }
 
 
-def window_profile(inputs, run: str, collect_stats: bool, steps: int) -> dict:
+def session_for(inputs, path: str) -> ServeSession | None:
+    """A fresh session (its own runner cache) for the session path."""
+    return None if path == "uncached" else ServeSession(*inputs[:3], device="cuda")
+
+
+def window_profile(inputs, run: str, collect_stats: bool, steps: int, path: str) -> dict:
     """One compiled step of a ``--steps`` call, averaged over the call's
     compiled steps from the first port kernel on (no host ops: the host's
     steps are not separated)."""
     policy, knobs = RUNS[run]
     plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats, **knobs)
-    serve(inputs, plan)  # warm-up
-    device, _, n = profiled(inputs, plan, window=True)
+    session = session_for(inputs, path)
+    serve(inputs, plan, session)  # warm-up (and the session's captures)
+    device, _, n = profiled(inputs, plan, window=True, session=session)
     per_step = {name: (ms / n, c / n) for name, (ms, c) in device.items()}
-    return {"run": run, "collect_stats": collect_stats, "steps": [steps], "window": True,
-            "compiled_steps": n, "step_ms": None,
+    return {"run": run, "path": path, "collect_stats": collect_stats, "steps": [steps],
+            "window": True, "compiled_steps": n, "step_ms": None,
             **summary(per_step, {})}
 
 
 def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
-                 reps: int) -> dict:
+                 reps: int, path: str) -> dict:
     policy, knobs = RUNS[run]
     long_plan = DittoPlan(steps=steps, policy=policy, collect_stats=collect_stats, **knobs)
     short_plan = DittoPlan(steps=short, policy=policy, collect_stats=collect_stats, **knobs)
-    serve(inputs, short_plan)  # warm-up
+    session = session_for(inputs, path)
+    serve(inputs, short_plan, session)  # warm-up (and the session's captures)
     walls = {steps: [], short: []}
     for _ in range(reps):
         for plan in (long_plan, short_plan):
-            walls[plan.steps].append(serve(inputs, plan))
+            walls[plan.steps].append(serve(inputs, plan, session))
     d = steps - short
     step_ms = (statistics.median(walls[steps]) - statistics.median(walls[short])) / d * 1e3
-    (dev_l, host_l, _), (dev_s, host_s, _) = (profiled(inputs, long_plan),
-                                              profiled(inputs, short_plan))
+    (dev_l, host_l, _), (dev_s, host_s, _) = (profiled(inputs, long_plan, session=session),
+                                              profiled(inputs, short_plan, session=session))
     per_step = {}
     for name in dev_l.keys() | dev_s.keys():
         (ms_l, n_l), (ms_s, n_s) = dev_l.get(name, (0.0, 0)), dev_s.get(name, (0.0, 0))
@@ -153,7 +178,7 @@ def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
     host = {k: (host_l.get(k, 0.0) - host_s.get(k, 0.0)) / d
             for k in host_l.keys() | host_s.keys()}
     out = summary(per_step, host)
-    return {"run": run, "collect_stats": collect_stats, "steps": [steps, short],
+    return {"run": run, "path": path, "collect_stats": collect_stats, "steps": [steps, short],
             "step_ms": step_ms, "device_idle_share": 1.0 - out["device_busy_ms"] / step_ms,
             **out}
 
@@ -177,14 +202,18 @@ def main() -> int:
     x_T = torch.randn((2, 32, 32, 4), generator=g, device="cuda")
     labels = torch.tensor([207, 360], device="cuda")
     inputs = (params, dit.DIT_XL2, diffusion.linear_schedule(1000), x_T, labels)
-    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}; {smi.stdout.strip()}")
     for run in args.policy:
         for collect_stats in (True, False):
-            if run == "defo":  # its modes differ between two lengths: one call's window
-                row = window_profile(inputs, run, collect_stats, args.steps)
-            else:
-                row = step_profile(inputs, run, collect_stats, args.steps, args.short, args.reps)
-            print(json.dumps(row), flush=True)
+            for path in ("uncached", "session"):
+                if run == "defo":  # its modes differ between two lengths: one call's window
+                    row = window_profile(inputs, run, collect_stats, args.steps, path)
+                else:
+                    row = step_profile(inputs, run, collect_stats, args.steps, args.short,
+                                       args.reps, path)
+                print(json.dumps(row), flush=True)
     return 0
 
 

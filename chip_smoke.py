@@ -36,7 +36,32 @@ Phases (any failure raises and the script exits non-zero):
              histograms must equal those of the ``low_bits=8`` run of the
              same policy, and every kernel must have launched during these
              runs.
-4. times   — each kernel on the inputs the slice gave it (the last call at
+4. serve   — ``ServeSession`` at DiT-XL/2 through one runner cache (one
+             CUDA graph captured per runner key, replayed every later step):
+             requests of 1, 3, 2 and 4 rows (buckets 1, 4, 2, 4; the
+             2-row one is the slice's own request) under (diff,
+             statistics), the same without statistics (its graphs
+             captured beforehand by ``cache.warmup``), a three-segment
+             schedule (two-pass, then ``low_bits=4``, then ``low_bits=4``
+             fused) and, at 10 steps, ``plan.watchdog`` with a ``drift``
+             fault armed, then with a ``poison_nan`` fault and no
+             saturation watch (so the one re-anchor is the rollback's).
+             Every sample must equal uncached ``serve_records`` at its
+             bucket bit for bit (the watchdog runs with the same fault and
+             the same re-anchors; the poisoned run's re-anchor records
+             too, whose class statistics read the rolled-back arena), the
+             slice's request its tile histograms too; every key must
+             capture once; each run's kernels must have launched from
+             replayed graphs (launches per capture x replays). It prints
+             the sample walls, the median wall of a replayed and an
+             uncached compiled step and of the watchdog's arena snapshot
+             per bucket, and the memory held and peaking in each request;
+             bucket 4's sample must equal the unbucketed run
+             of its 3 rows, and a PLMS request (which keeps earlier
+             steps' eps) must equal uncached on the DDIM graph. Last,
+             ``cache.warmup`` captures buckets 8 and 16, to read what the
+             next rungs of the ladder hold.
+5. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -50,6 +75,7 @@ The last lines are the kernels JSON, the card's name and power limit, and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -64,13 +90,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import diffusion  # noqa: E402
-from repro_torch.core.ditto import DittoPlan  # noqa: E402
+from repro_torch.core.ditto import DittoPlan, PlanSchedule, dit_runner  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
 from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
+from repro_torch.serve import (CompiledRunnerCache, Fault, FaultInjector,  # noqa: E402
+                               ServeSession, bucket_for, inject)
+from repro_torch.serve import cache as serve_cache  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
@@ -117,6 +146,7 @@ def say(*a):
 
 def launch_counts() -> dict:
     return {name: getattr(k["module"], k["counter"]) for name, k in KERNELS.items()}
+
 
 
 def zero_counts() -> None:
@@ -412,7 +442,9 @@ def step_calls(calls_after: dict, calls_before: dict, n_compiled: int) -> dict:
     return out
 
 
-def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
+def make_model():
+    """DiT-XL/2 params (random, from a seed) on the card, the slice's B = 2
+    request (x_T, labels) and the noise schedule."""
     g = torch.Generator(device=DEVICE).manual_seed(0)
     t0 = time.perf_counter()
     params = dit.init(g, CFG, device=DEVICE)
@@ -420,13 +452,15 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
     # out of the sample: give the mod projections N(0, 0.02) weights
     params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
     n_weights = sum(w.numel() for w in dense_weights(params))
-    say(f"slice: DiT-XL/2 init {time.perf_counter() - t0:.2f} s, "
+    say(f"model: DiT-XL/2 init {time.perf_counter() - t0:.2f} s, "
         f"{n_weights / 1e6:.1f} M dense weights")
     x_T = torch.randn((B, CFG.input_size, CFG.input_size, CFG.in_channels), generator=g,
                       device=DEVICE)
     labels = torch.randint(0, CFG.n_classes, (B,), generator=g, device=DEVICE)
-    sched = diffusion.linear_schedule(1000)
+    return params, x_T, labels, diffusion.linear_schedule(1000)
 
+
+def phase_slice(cap: Capture, params, x_T, labels, sched) -> tuple[dict, dict, dict, dict]:
     zero_counts()
     per_policy: dict = {}
     walls: dict = {}
@@ -451,6 +485,8 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
             diff = (sample - eager).abs().max().item()
             raise AssertionError(f"{policy}: compiled sample differs from eager (max {diff})")
         eager_by_policy[policy], hists_by_policy[policy] = eager, tile_hists(recs)
+        if policy == "diff":
+            diff_run = dict(sample=sample, records=recs)
         modes = {}
         for r in recs:
             if r["step"] == STEPS - 1:
@@ -500,7 +536,233 @@ def phase_slice(cap: Capture) -> tuple[dict, dict, dict]:
     missing = [n for n, c in totals.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return totals, walls, steps_by_run
+    return totals, walls, steps_by_run, diff_run
+
+
+# ----------------------------------------------------------------- serving
+SERVE_ROWS = (1, 3, 2, 4)  # buckets 1, 4, 2, 4; the 2-row request is the slice's
+WATCHDOG_ROWS = (3, 2)
+# the kernels each serving run must launch from its replayed graphs
+RUN_KERNELS = {"diff": ("diff_encode", "ditto_diff_matmul"),
+               "diff no stats": ("diff_encode", "ditto_diff_matmul"),
+               "schedule": ("diff_encode", "ditto_diff_matmul", DIFF4, "diff_encode_fused",
+                            "ditto_fused_matmul"),
+               "watchdog drift": ("diff_encode", "ditto_diff_matmul", "int8_matmul"),
+               "watchdog poison": ("diff_encode", "ditto_diff_matmul", "int8_matmul")}
+WATCHDOG_STEPS = 10  # the watchdog runs are held to uncached runs with statistics
+# the faults of the watchdog runs, at a denoise.step arrival (compiled step)
+DRIFT = Fault("denoise.step", 3, "drift", value=64.0)
+POISON = Fault("denoise.step", 4, "poison_nan")
+LADDER_PROBE = (8, 16)  # buckets whose graphs the phase captures only to read their memory
+
+
+class StepClock:
+    """Wall time of every compiled step (``CompiledDittoDiT.__call__``,
+    record reading included), the card synchronised before and after; keyed
+    by whether the runner cache served it (a graph replay) and the bucket.
+    Also the wall of every arena snapshot the watchdog takes before a
+    guarded step."""
+
+    def __init__(self):
+        self.walls: dict = {}
+        self.snaps: dict = {}
+        self.orig = dit_runner.CompiledDittoDiT.__call__
+        self.orig_snapshot = serve_cache.ArenaState.snapshot
+        clock = self
+
+        def timed(runner, latents, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = clock.orig(runner, latents, *args, **kw)
+            torch.cuda.synchronize()
+            key = (isinstance(runner._step, serve_cache._Runner), latents.shape[0])
+            clock.walls.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+
+        def timed_snapshot(state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = clock.orig_snapshot(state)
+            torch.cuda.synchronize()
+            rows = state["blk0.wq"]["x_prev"].shape[0]
+            clock.snaps.setdefault(rows, []).append(time.perf_counter() - t0)
+            return out
+
+        dit_runner.CompiledDittoDiT.__call__ = timed
+        serve_cache.ArenaState.snapshot = timed_snapshot
+
+    def take(self, cached: bool) -> dict:
+        """Median ms per bucket of the steps timed since the last take."""
+        out = {b: statistics.median(w) * 1e3 for (c, b), w in self.walls.items() if c == cached}
+        self.walls = {k: w for k, w in self.walls.items() if k[0] != cached}
+        return out
+
+    def take_snapshots(self, tokens: int) -> dict:
+        """Median ms per bucket of the watchdog's arena snapshots since the
+        last take (a token layer's state holds bucket x ``tokens`` rows)."""
+        out = {rows // tokens: statistics.median(w) * 1e3 for rows, w in self.snaps.items()}
+        self.snaps = {}
+        return out
+
+    def close(self):
+        dit_runner.CompiledDittoDiT.__call__ = self.orig
+        serve_cache.ArenaState.snapshot = self.orig_snapshot
+
+
+def phase_serve(params, x_T, labels, sched, diff_run) -> dict:
+    """ServeSession at DiT-XL/2 through one runner cache (one CUDA graph per
+    key), each sample held bit for bit to uncached ``serve_records`` at the
+    same bucket."""
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    reqs = []
+    for n in SERVE_ROWS:
+        if n == B:
+            reqs.append((x_T, labels))
+        else:
+            reqs.append((torch.randn((n,) + tuple(x_T.shape[1:]), generator=g, device=DEVICE),
+                         torch.randint(0, CFG.n_classes, (n,), generator=g, device=DEVICE)))
+    base = DittoPlan(steps=STEPS, policy="diff", max_batch=4)
+    bare = base.replace(collect_stats=False)
+    third = STEPS // 3
+    schedule = PlanSchedule(bare, [(0, third, {}), (third, 2 * third, dict(low_bits=4)),
+                                   (2 * third, STEPS, dict(low_bits=4, fused=True))])
+    watchdog = base.replace(steps=WATCHDOG_STEPS, watchdog=True, reanchor_full_frac=0.9)
+    guarded = watchdog.replace(reanchor_full_frac=None)
+    armed = lambda fault: (contextlib.nullcontext() if fault is None
+                           else inject(FaultInjector([fault])))
+    cache = CompiledRunnerCache()
+    sess = ServeSession(params, CFG, sched, base, cache=cache)
+    clock = StepClock()
+    out: dict = {"runs": {}, "mem_gib": []}
+
+    def ref(x, lab, plan, bucket, fault=None):
+        with armed(fault):
+            recs, sample, eng = harness.serve_records(params, CFG, sched, x, lab, plan,
+                                                      bucket=bucket, device=DEVICE)
+        torch.cuda.synchronize()
+        return sample, eng
+
+    try:
+        # uncached references (no statistics: the sample does not depend on them)
+        bare_ref = [ref(x, lab, bare, bucket_for(x.shape[0], max_batch=4))[0]
+                    for x, lab in reqs]
+        out["uncached_step_ms_no_stats"] = clock.take(False)
+        for name, plan, rows, fault in (("diff", base, SERVE_ROWS, None),
+                                        ("diff no stats", bare, SERVE_ROWS, None),
+                                        ("schedule", schedule, SERVE_ROWS, None),
+                                        ("watchdog drift", watchdog, WATCHDOG_ROWS, DRIFT),
+                                        ("watchdog poison", guarded, WATCHDOG_ROWS, POISON)):
+            zero_counts()
+            caps0, replayed0 = dict(cache.capture_counts), cache.replayed_launches()
+            walls, events = [], []
+            if name == "diff no stats":  # its graphs captured before its first request
+                warm = cache.warmup(CFG, modes, [plan], buckets=(1, 4, 2), params=sess.params)
+                if warm["captures"] != 3:
+                    raise AssertionError(f"warmup captured {warm}, want 3 graphs")
+            for n in rows:
+                x, lab = reqs[SERVE_ROWS.index(n)]
+                bucket = bucket_for(n, max_batch=4)
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated() / 2**30
+                with armed(fault) as inj:
+                    res = sess.serve(x, lab, plan=plan)
+                if fault is not None and len(inj.fired) != 1:
+                    raise AssertionError(f"{name}: the {fault.kind} fault did not fire")
+                # (run, bucket, held before the request, peak in it)
+                out["mem_gib"].append((name, bucket, held,
+                                       torch.cuda.max_memory_allocated() / 2**30))
+                walls.append((n, bucket, res.wall_s))
+                chunk = res.chunks[0]
+                modes = chunk.engine.compiled_modes()
+                if name == "diff no stats" and res.captures_delta:
+                    raise AssertionError(f"{name}: {n} rows captured after the warmup")
+                events.append(chunk.engine.watchdog_events)
+                if name in ("diff", "diff no stats"):
+                    want = bare_ref[SERVE_ROWS.index(n)]
+                else:
+                    want, reng = ref(x, lab, plan, bucket, fault)
+                    if fault is not None and reng.watchdog_events != chunk.engine.watchdog_events:
+                        raise AssertionError(
+                            f"{name}: re-anchors {chunk.engine.watchdog_events}, uncached "
+                            f"{reng.watchdog_events}")
+                    if fault is POISON:
+                        if [e["trigger"] for e in reng.watchdog_events] != ["nonfinite"]:
+                            raise AssertionError(f"{name}: uncached re-anchors "
+                                                 f"{reng.watchdog_events}, want one nonfinite")
+                        rolled = [r for r in chunk.engine.records if r.get("reanchor")]
+                        if not rolled or rolled != [r for r in reng.records if r.get("reanchor")]:
+                            raise AssertionError(f"{name}: the re-anchor's records differ "
+                                                 "from uncached (the arena's rollback)")
+                if res.sample.shape != x.shape or not torch.isfinite(res.sample).all():
+                    raise AssertionError(f"{name}: {n} rows: sample not finite or misshapen")
+                if not torch.equal(res.sample, want):
+                    d = (res.sample - want).abs().max().item()
+                    raise AssertionError(f"{name}: {n} rows (bucket {bucket}): session sample "
+                                         f"differs from uncached serve_records (max {d})")
+                if name == "diff" and n == B:  # the slice's own request and plan
+                    if not torch.equal(res.sample, diff_run["sample"]):
+                        raise AssertionError("diff: session sample differs from the slice's")
+                    if tile_hists(res.records) != tile_hists(diff_run["records"]):
+                        raise AssertionError("diff: session tile histograms differ from the "
+                                             "slice's uncached run")
+                if fault is not None and not chunk.engine.watchdog_events:
+                    raise AssertionError(f"{name}: the {fault.kind} triggered no re-anchor")
+            replayed1 = cache.replayed_launches()
+            new_keys = [k for k, c in cache.capture_counts.items() if c != caps0.get(k, 0)]
+            captured = {}
+            for k in new_keys:
+                for kern, c in cache.capture_launches.get(k, {}).items():
+                    captured[kern] = captured.get(kern, 0) + c
+            replayed = {k: replayed1.get(k, 0) - replayed0.get(k, 0) for k in replayed1}
+            ticks = launch_counts()
+            executed = {k: ticks[k] - captured.get(k, 0) + replayed.get(k, 0) for k in ticks}
+            idle = [k for k in RUN_KERNELS[name] if not replayed.get(k)]
+            if idle:
+                raise AssertionError(f"{name}: no launch of {idle} from a replayed graph")
+            out["runs"][name] = dict(
+                sample_walls_s=walls, watchdog_events=events,
+                captures={"/".join(sorted({m for _, m in k.mode_sig}))
+                          + f" {k.plan_sig} bucket {k.bucket}": cache.capture_counts[k]
+                          for k in new_keys},
+                launches_executed={k: v for k, v in executed.items() if v},
+                launches_replayed={k: v for k, v in replayed.items() if v},
+                replayed_step_ms=clock.take(True), uncached_step_ms=clock.take(False),
+                snapshot_ms=clock.take_snapshots(CFG.n_tokens))
+            say(f"serve {name}: every sample == uncached serve_records; "
+                f"{json.dumps(out['runs'][name])}")
+        if any(c != 1 for c in cache.capture_counts.values()):
+            raise AssertionError(f"captures per key: {cache.capture_counts}")
+        # the PLMS sampler keeps earlier steps' eps: each replay must hand
+        # back its own copy (same runner as DDIM: the sampler is no key field)
+        x, lab = reqs[SERVE_ROWS.index(B)]
+        plms = bare.replace(sampler="plms")
+        res = sess.serve(x, lab, plan=plms)
+        if res.captures_delta or not torch.equal(res.sample, ref(x, lab, plms, B)[0]):
+            raise AssertionError("plms: the session sample differs from uncached (or it "
+                                 "captured a new graph)")
+        say(f"serve plms: session sample == uncached serve_records, no new capture; wall "
+            f"{res.wall_s:.2f} s")
+        # bucket 4's sample equals the unbucketed run of its 3 rows: the fp32
+        # glue's products give each row the same bits at either batch size
+        x, lab = reqs[SERVE_ROWS.index(3)]
+        if not torch.equal(ref(x, lab, bare, None)[0], bare_ref[SERVE_ROWS.index(3)]):
+            raise AssertionError("bucket 4's sample differs from the unbucketed 3-row run")
+        # the memory the next rungs of the bucket ladder take: their graphs
+        # and arenas, captured by warmup
+        for bucket in LADDER_PROBE:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2**30
+            cache.warmup(CFG, modes, [bare], buckets=(bucket,), params=sess.params)
+            out["mem_gib"].append(("warmup", bucket, held,
+                                   torch.cuda.max_memory_allocated() / 2**30))
+    finally:
+        clock.close()
+    out["cache"] = cache.stats()
+    say(f"serve: captures per key all 1 ({cache.stats()}); memory (run, bucket, held before, "
+        f"peak in it; GiB) {json.dumps(out['mem_gib'])}, held after "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    return out
 
 
 # ------------------------------------------------------------------- times
@@ -622,11 +884,13 @@ def main() -> int:
     say(f"build: {path.name} in {build_s:.1f} s")
 
     max_err = phase_parity()
+    params, x_T, labels, sched = make_model()
     cap = Capture()
     try:
-        totals, walls, steps_by_run = phase_slice(cap)
+        totals, walls, steps_by_run, diff_run = phase_slice(cap, params, x_T, labels, sched)
     finally:
         cap.close()
+    serving = phase_serve(params, x_T, labels, sched, diff_run)
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -647,6 +911,7 @@ def main() -> int:
                             bound_by=pick["bound_by"], library_ms=pick["library_ms"],
                             shape=pick["args"]))
     say(f"slice walls: {json.dumps(walls)}")
+    say(f"serving: {json.dumps(serving)}")
     say(f"total {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

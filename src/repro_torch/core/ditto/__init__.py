@@ -5,7 +5,7 @@ from .compiled import CompiledDittoEngine
 from .dit_runner import CompiledDittoDiT, DittoDiT, make_denoise_fn, make_step_fn
 from .engine import DittoEngine, LayerMeta
 from .hwmodel import ALL_HW, CAMBRICON_D, DEFAULT_HW, DIFFY, DITTO_HW, ITC, HwModel
-from .plan import EAGER_PLAN, DittoPlan
+from .plan import EAGER_PLAN, DittoPlan, PlanSchedule
 
 __all__ = [
     "bops",
@@ -13,6 +13,7 @@ __all__ = [
     "defo",
     "quant",
     "DittoPlan",
+    "PlanSchedule",
     "EAGER_PLAN",
     "DittoDiT",
     "CompiledDittoDiT",

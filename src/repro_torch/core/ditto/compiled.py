@@ -139,9 +139,13 @@ def attention_apply(p: dict, mode: str, a: torch.Tensor, b: torch.Tensor, st: di
 
 class CompiledDittoEngine:
     """Per-layer compiled ops with static modes, built from a calibrated
-    eager engine. All methods are pure (state in, state out)."""
+    eager engine. All methods are pure (state in, state out). ``weights``
+    (per linear layer ``w_qk`` / ``w_scale`` / ``bias``, as a runner cache
+    keeps them for its params) replaces the K-major weights this engine
+    would otherwise make from the eager engine's."""
 
-    def __init__(self, engine: DittoEngine, *, plan: DittoPlan | None = None):
+    def __init__(self, engine: DittoEngine, *, plan: DittoPlan | None = None,
+                 weights: dict | None = None):
         if not engine.ready_for_compiled():
             raise ValueError(
                 "engine not calibrated: run >= 1 eager step (>= 2 for defo policies, "
@@ -154,8 +158,9 @@ class CompiledDittoEngine:
         self.params: dict[str, dict] = {}
         for name, st in engine.layers.items():
             if st.w is not None:
-                self.params[name] = dict(w_qk=st.w.q.t().contiguous(), w_scale=st.w.scale,
-                                         bias=st.bias, x_scale=st.x_scale)
+                w = (dict(w_qk=st.w.q.t().contiguous(), w_scale=st.w.scale, bias=st.bias)
+                     if weights is None else weights[name])
+                self.params[name] = dict(w, x_scale=st.x_scale)
             else:
                 self.params[name] = dict(a_scale=st.a_scale, b_scale=st.b_scale)
 

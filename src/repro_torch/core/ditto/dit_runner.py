@@ -11,9 +11,12 @@ steps until the engine is calibrated (>= 1 step; for Defo policies, until
 the step-2 decision), then hands the remaining steps to the compiled step,
 in which each layer's mode is fixed: act layers launch ``int8_matmul``,
 diff layers ``diff_encode`` -> ``ditto_diff_matmul`` (or, with
-``plan.fused``, ``diff_encode_fused`` -> ``ditto_fused_matmul``). Not in
-this slice: the reference's runner cache, batch buckets, plan schedules
-and watchdog (ROADMAP.md, queue 1).
+``plan.fused``, ``diff_encode_fused`` -> ``ditto_fused_matmul``). With a
+runner cache (``serve/cache.py``) the compiled step is the cache's runner
+of its key, one captured CUDA graph on the card; a ``PlanSchedule`` swaps
+runners at segment boundaries and carries the temporal state across; the
+watchdog (``plan.watchdog``) re-anchors a step that saturates or goes
+non-finite.
 """
 from __future__ import annotations
 
@@ -22,14 +25,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ...kernels.common import resolve_device
+from ...kernels.common import DEFAULT_LOW_BITS, resolve_device
 from ...nn import core as nncore
 from ...nn import dit as dit_mod
 from . import compiled as compiled_mod
 from . import defo
 from .compiled import CompiledDittoEngine
 from .engine import DittoEngine
-from .plan import EAGER_PLAN, DittoPlan
+from .plan import (EAGER_PLAN, DittoPlan, PlanSchedule, check_device_block,
+                   segment_resolved)
 
 
 def _dit_forward(params, cfg: dit_mod.DiTCfg, linear, attention, latents, t, labels):
@@ -119,31 +123,44 @@ class DittoDiT:
                             latents, t, labels)
 
 
-def make_step_fn(cfg: dit_mod.DiTCfg, modes: dict[str, str], plan: DittoPlan | None = None):
+def make_step_fn(cfg: dit_mod.DiTCfg, modes: dict[str, str], plan: DittoPlan | None = None,
+                 *, inplace: bool = False):
     """Build the per-step function of the compiled pass.
 
     Returns ``step(ditto_params, model_params, state, latents, t, labels)
     -> (eps_hat, new_state, aux)``. Everything data-dependent is an
-    argument; ``cfg``, the frozen per-layer ``modes`` and the plan are
-    fixed when the step is built.
+    argument; ``cfg``, the frozen per-layer ``modes`` and the plan (one
+    segment's: a multi-segment ``PlanSchedule`` is rejected, a constant
+    one collapses to its plan) are fixed when the step is built.
+    ``inplace`` copies each layer's new state over ``state``'s tensors
+    right after the layer and returns ``state`` itself: the form a
+    captured CUDA graph needs (``serve/cache.py``).
     """
-    plan = DittoPlan() if plan is None else plan
+    plan = segment_resolved(DittoPlan() if plan is None else plan)
     modes = dict(modes)
 
     def step(dparams, mparams, state, latents, t, labels):
-        new_state: dict = {}
+        new_state: dict = state if inplace else {}
         aux: dict = {}
+
+        def keep(name, st2, a):
+            if inplace:
+                for k, v in st2.items():
+                    state[name][k].copy_(v)
+            else:
+                new_state[name] = st2
+            aux[name] = a
 
         def lin(name, x):
             y, st2, a = compiled_mod.linear_apply(dparams[name], modes[name], x,
                                                   state[name], plan=plan)
-            new_state[name], aux[name] = st2, a
+            keep(name, st2, a)
             return y
 
         def attn(name, a_, b_):
             y, st2, a = compiled_mod.attention_apply(dparams[name], modes[name], a_, b_,
                                                      state[name], plan=plan)
-            new_state[name], aux[name] = st2, a
+            keep(name, st2, a)
             return y
 
         out = _dit_forward(mparams, cfg, lin, attn, latents, t, labels)
@@ -157,17 +174,26 @@ class CompiledDittoDiT:
     calibrated engine. Per-layer temporal state is threaded functionally;
     modes are fixed at construction. With ``collect_stats`` the class
     fractions come back as an aux dict and the engine turns them into
-    cost-model records for the step."""
+    cost-model records for the step.
+
+    With ``cache`` (a ``serve.CompiledRunnerCache``) the step is the
+    cache's runner of (cfg, modes, ``plan.cache_sig()``, ``bucket``) — a
+    captured CUDA graph on the card — and the K-major weights are the
+    cache's, built once for its params."""
 
     def __init__(self, params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
-                 plan: DittoPlan | None = None):
+                 plan: DittoPlan | None = None, *, cache=None, bucket: int | None = None):
         self.cfg = cfg
         self.engine = engine
         self.params = params
-        self.plan = DittoPlan() if plan is None else plan
-        self.ceng = CompiledDittoEngine(engine, plan=self.plan)
+        self.plan = segment_resolved(DittoPlan() if plan is None else plan)
+        weights = None if cache is None else cache.weights_for(params, engine)
+        self.ceng = CompiledDittoEngine(engine, plan=self.plan, weights=weights)
         self.state = self.ceng.init_state()
-        self._step = make_step_fn(cfg, self.ceng.modes, self.plan)
+        if cache is not None:
+            self._step = cache.step_for(cfg, self.ceng.modes, self.plan, bucket=bucket)
+        else:
+            self._step = make_step_fn(cfg, self.ceng.modes, self.plan)
 
     def __call__(self, latents, t, labels=None):
         out, self.state, aux = self._step(self.ceng.params, self.params, self.state,
@@ -178,7 +204,8 @@ class CompiledDittoDiT:
 
 
 def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
-                    plan: DittoPlan | None = None, *, device=None):
+                    plan: DittoPlan | PlanSchedule | None = None, *, runner_cache=None,
+                    bucket: int | None = None, device=None):
     """denoise_fn(x, t, labels) for ``core.diffusion`` samplers; calls
     engine.end_step() after each sampler step.
 
@@ -187,25 +214,123 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
     steps run through the kernels, seeded with the eager pass's temporal
     state; a new compiled runner is built per sample (begin_sample resets
     state and Defo may re-decide modes). ``device`` (default: the card)
-    must be the engine's device.
+    must be the engine's device. On the card a plan whose ``block`` is not
+    128 raises ``ValueError`` here, before any eager step
+    (:func:`~repro_torch.core.ditto.plan.check_device_block`).
+
+    ``runner_cache`` (a ``serve.CompiledRunnerCache``) shares the step
+    across samples and batches whose (cfg, modes, ``plan.cache_sig()``,
+    ``bucket``) agree: one captured CUDA graph per key on the card.
+
+    ``plan`` may be a :class:`PlanSchedule`: at a segment boundary the
+    runner is swapped for one built from the new segment's plan (same
+    runner cache) and the temporal state is carried across, so outputs stay
+    bit-identical to the matching constant plan. Eager calibration steps
+    ignore segment kernel knobs.
+
+    ``plan.watchdog=True`` guards every compiled step: a non-finite output
+    rolls the step back (state and records) and re-runs it as a re-anchor;
+    with ``plan.reanchor_full_frac`` a step whose measured full-tile
+    fraction reaches it schedules a re-anchor of the next step. A
+    re-anchor runs the step with every layer in act mode under the
+    canonical plan (``fused=False``, default ``low_bits``), refreshing
+    x_prev / y_prev. Events land on ``engine.watchdog_events``; output that
+    is still non-finite raises ``serve.faults.NumericalFault``.
     """
     plan = EAGER_PLAN if plan is None else plan
-    if not isinstance(plan, DittoPlan):
+    if not isinstance(plan, (DittoPlan, PlanSchedule)):
         raise TypeError(
-            f"make_denoise_fn takes a DittoPlan, got {type(plan).__name__}; plan "
-            "schedules come with a later slice (ROADMAP.md, queue 1)")
+            f"make_denoise_fn takes a DittoPlan or a PlanSchedule, got {type(plan).__name__}")
     dev = resolve_device(device)
+    check_device_block(plan, dev)
     if engine.device != dev:
         raise ValueError(f"engine lives on {engine.device}, denoise_fn asked for {dev}")
+    schedule = plan.normalized() if isinstance(plan, PlanSchedule) else None
+    watchdog = plan.watchdog
+    reanchor_frac = plan.reanchor_full_frac
+    if watchdog:
+        # the typed error and the fault probe live with the serving layer;
+        # imported here so core.ditto does not depend on serve
+        from ...serve import faults as faults_mod
     runner = DittoDiT(params, cfg, engine)
     box: dict = {}
 
+    def reanchor_step(x, t, labels, trigger: str, extra: dict):
+        """Run this step with every layer in act mode under the canonical
+        re-anchor plan, refreshing the temporal anchors."""
+        cur = box["runner"]
+        rplan = cur.plan.replace(fused=False, low_bits=DEFAULT_LOW_BITS)
+        act_modes = {name: "act" for name in cur.ceng.modes}
+        rsig = rplan.cache_sig()
+        if box.get("reanchor_sig") != rsig:
+            if runner_cache is not None:
+                box["reanchor_fn"] = runner_cache.step_for(cfg, act_modes, rplan, bucket=bucket)
+            else:
+                box["reanchor_fn"] = make_step_fn(cfg, act_modes, rplan)
+            box["reanchor_sig"] = rsig
+        out, cur.state, aux = box["reanchor_fn"](cur.ceng.params, params, cur.state,
+                                                 x, t, labels)
+        if rplan.collect_stats:
+            engine.record_compiled_step(aux, modes=act_modes, reanchor=True)
+        engine.watchdog_events.append({"step": engine.step_idx, "trigger": trigger, **extra})
+        return out
+
+    def guarded_step(x, t, labels):
+        """One compiled step under the watchdog: the finite guard, and the
+        saturation tracking that schedules a re-anchor of the next step."""
+        fault = faults_mod.fire("denoise.step")
+        x_in = x
+        if fault is not None and fault.kind == "drift":
+            x_in = faults_mod.corrupt(fault, x)  # saturate the temporal Δs
+        due = box.pop("reanchor_due", None)
+        if due is not None:
+            return reanchor_step(x_in, t, labels, "saturation", {"full_frac": due})
+        cur = box["runner"]
+        # a runner cache's graphs update their state in place: keep a copy
+        snapshot = getattr(cur.state, "snapshot", None)
+        pre_state = cur.state if snapshot is None else snapshot()
+        n0 = len(engine.records)
+        out = cur(x_in, t, labels)
+        if fault is not None and fault.kind in ("poison_nan", "poison_inf"):
+            # poison the step OUTPUT: quantization launders input NaNs
+            out = faults_mod.corrupt(fault, out)
+        if not bool(torch.isfinite(out).all()):
+            # roll back the poisoned step (state and records) and re-run it
+            # re-anchored from the pre-step state, with the clean input
+            cur.state = pre_state
+            del engine.records[n0:]
+            return reanchor_step(x, t, labels, "nonfinite", {})
+        if reanchor_frac is not None:
+            hists = [r["tile_hist"] for r in engine.records[n0:] if "tile_hist" in r]
+            total = sum(sum(h) for h in hists)
+            full = sum(h[2] for h in hists)
+            if total and full >= reanchor_frac * total:
+                box["reanchor_due"] = full / total
+        return out
+
     def fn(x, t, labels):
         if plan.compiled and engine.ready_for_compiled():
+            # engine.step_idx is the current sampler step
+            seg_plan = schedule.plan_for(engine.step_idx) if schedule is not None else plan
+            sig = seg_plan.cache_sig()
             if box.get("built_for") is not engine.records:  # rebuilt per begin_sample
-                box["runner"] = CompiledDittoDiT(params, cfg, engine, plan)
+                box["runner"] = CompiledDittoDiT(params, cfg, engine, seg_plan,
+                                                 cache=runner_cache, bucket=bucket)
                 box["built_for"] = engine.records
-            out = box["runner"](x, t, labels)
+                box["sig"] = sig
+                box.pop("reanchor_due", None)  # saturation never crosses samples
+            elif box["sig"] != sig:  # segment boundary: swap the step, carry the state
+                prev = box["runner"]
+                box["runner"] = CompiledDittoDiT(params, cfg, engine, seg_plan,
+                                                 cache=runner_cache, bucket=bucket)
+                box["runner"].state = prev.state
+                box["sig"] = sig
+            if watchdog:
+                out = guarded_step(x, t, labels)
+                if not bool(torch.isfinite(out).all()):
+                    raise faults_mod.NumericalFault(engine.step_idx)
+            else:
+                out = box["runner"](x, t, labels)
         else:
             out = runner(x, t, labels)
         engine.end_step()

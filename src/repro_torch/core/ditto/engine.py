@@ -81,6 +81,7 @@ class DittoEngine:
         self.meta: dict[str, LayerMeta] = {}
         self.step_idx = 0
         self.records: list[dict] = []  # one per (layer, step)
+        self.watchdog_events: list[dict] = []  # re-anchor events (serve watchdog)
         self._decided = False
         self._compiled_base = None  # cached (modes, first-record-per-layer)
 
@@ -103,6 +104,7 @@ class DittoEngine:
         self._decided = False
         self._compiled_base = None
         self.records = []
+        self.watchdog_events = []
         for st in self.layers.values():
             st.x_prev = st.y_prev = None
             st.a_prev = st.b_prev = None
@@ -315,7 +317,9 @@ class DittoEngine:
             modes[name] = m
         return modes
 
-    def record_compiled_step(self, aux: dict[str, dict]) -> None:
+    def record_compiled_step(self, aux: dict[str, dict], *,
+                             modes: dict[str, str] | None = None,
+                             reanchor: bool = False) -> None:
         """Append records for one compiled step.
 
         ``aux`` maps each layer to (3,) tensors reduced in the step:
@@ -324,13 +328,17 @@ class DittoEngine:
         (n_zero, n_low, n_full) tile-class histogram from diff_encode — for
         diff-mode layers. They come to the host in one copy. Layer
         dimensions are reused from that layer's calibration-step record.
+        ``modes`` overrides the frozen modes the step ran under (the
+        watchdog's all-act re-anchor step); ``reanchor`` marks its records.
         """
         if self._compiled_base is None:
             base_by_layer: dict[str, dict] = {}
             for r in self.records:
                 base_by_layer.setdefault(r["layer"], r)
             self._compiled_base = (self.compiled_modes(), base_by_layer)
-        modes, base_by_layer = self._compiled_base
+        base_modes, base_by_layer = self._compiled_base
+        if modes is None:
+            modes = base_modes
         keys = [(name, key) for name, a in aux.items() for key in a]
         if not keys:
             return
@@ -344,6 +352,8 @@ class DittoEngine:
             meta = self.meta[name]
             rec: dict[str, Any] = {"layer": name, "step": self.step_idx, "mode": modes[name],
                                    "kind": meta.kind, "macs": base["macs"], "compiled": True}
+            if reanchor:
+                rec["reanchor"] = True
             self._account_classes(rec, base["t"], base["k"], base["n"], a["cls_act"],
                                   a.get("cls_diff"), meta, attention=base["attention"],
                                   cls_spatial=a.get("cls_spatial"))

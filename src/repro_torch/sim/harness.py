@@ -14,7 +14,7 @@ from ..core import diffusion
 from ..core.ditto.dit_runner import make_denoise_fn
 from ..core.ditto.engine import DittoEngine
 from ..core.ditto.hwmodel import CAMBRICON_D, DIFFY, DITTO_HW, ITC
-from ..core.ditto.plan import DittoPlan
+from ..core.ditto.plan import DittoPlan, PlanSchedule, check_device_block
 from ..kernels.common import resolve_device
 from ..nn import dit as dit_mod
 from ..nn.core import map_tree
@@ -44,27 +44,46 @@ def _on(device, params, sched, x_T, labels):
 
 
 def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
-                  plan: DittoPlan | None = None, *, device=None):
+                  plan: DittoPlan | PlanSchedule | None = None, *, runner_cache=None,
+                  bucket: int | None = None, device=None):
     """The deployment pass: eager calibration (+ the Defo mode decision
     after step 2), then the remaining steps through the kernels — act
     layers on int8_matmul, diff layers on diff_encode -> ditto_diff_matmul
     (``plan.low_bits=4``: its packed-int4 branch) or, with ``plan.fused``,
-    diff_encode_fused -> ditto_fused_matmul, with tile skipping on the card. Records cover every step (compiled
-    steps build theirs from class fractions reduced on the card unless
-    ``plan.collect_stats=False``).
+    diff_encode_fused -> ditto_fused_matmul, with tile skipping on the
+    card. Records cover every step (compiled steps build theirs from class
+    fractions reduced on the card unless ``plan.collect_stats=False``).
 
     ``plan`` is the whole configuration; omitting it means ``DittoPlan()``
-    (20-step DDIM, Defo, compiled). ``device`` defaults to the card; the
-    inputs are moved there. Returns (records, sample, engine).
+    (20-step DDIM, Defo, compiled). It may be a ``PlanSchedule``: the loop
+    fields come off its base and the compiled steps are partitioned by
+    segment. ``device`` defaults to the card; the inputs are moved there
+    (a no-op for tensors already on it, so a session's params keep their
+    addresses). On the card a plan whose ``block`` is not 128 raises
+    ``ValueError`` before any step runs.
+
+    ``runner_cache`` (a ``serve.CompiledRunnerCache``) shares the compiled
+    step across calls: one captured CUDA graph per (cfg, modes,
+    ``plan.cache_sig()``, bucket) on the card. ``bucket`` pads the batch up
+    to that size by row replication before the pass and slices the sample
+    back afterwards (``serve/bucketing.py``); records are collected at
+    bucket scale. Returns (records, sample, engine).
     """
     plan = DittoPlan() if plan is None else plan
     dev = resolve_device(device)
+    check_device_block(plan, dev)
     params, sched, x_T, labels = _on(dev, params, sched, x_T, labels)
+    true_b = x_T.shape[0]
+    if bucket is not None and bucket != true_b:
+        from ..serve import bucketing  # function-level: repro_torch.serve imports this module
+
+        x_T, labels = bucketing.pad_batch(x_T, labels, bucket)
     eng = DittoEngine(policy=plan.policy, collect_oracle=plan.collect_stats, device=dev)
-    fn = make_denoise_fn(params, cfg, eng, plan, device=dev)
+    fn = make_denoise_fn(params, cfg, eng, plan, runner_cache=runner_cache,
+                         bucket=x_T.shape[0], device=dev)
     eng.begin_sample()
     sample = diffusion.SAMPLERS[plan.sampler](sched, fn, x_T, steps=plan.steps, labels=labels)
-    return eng.records, sample, eng
+    return eng.records, sample[:true_b], eng
 
 
 def collect_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels, *, steps: int,

@@ -126,8 +126,10 @@ def test_plms_sampler_serves(inputs):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"] + sorted((ROOT / "benchmarks").glob("torch_*.py"))
-    assert len(files) > 20
+        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_diffusion_torch.py"] + sorted(
+        (ROOT / "benchmarks").glob("torch_*.py"))
+    assert len(files) > 25
+    assert ROOT / "src" / "repro_torch" / "serve" / "session.py" in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
