@@ -61,7 +61,31 @@ Phases (any failure raises and the script exits non-zero):
              steps' eps) must equal uncached on the DDIM graph. Last,
              ``cache.warmup`` captures buckets 8 and 16, to read what the
              next rungs of the ladder hold.
-5. times   — each kernel on the inputs the slice gave it (the last call at
+5. scheduler — ``ServeScheduler`` at DiT-XL/2, 10 DDIM steps,
+             ``max_batch=4``, no statistics, the kernel counts zeroed
+             first. Sync: requests of 3, 3 and 2 rows dispatch as 4 + 4
+             with no pad row (one by one: 2), each ticket equal to the
+             same rows served alone through ``ServeSession`` bit for bit,
+             both walls timed warm. Async (25 ms interval): a lone 1-row
+             request with a budget dispatches as a "deadline" partial;
+             then, on a cold cache, four client threads, each making its
+             inputs on the card, submit two requests under diff, (diff,
+             ``fused``), a two-segment schedule and act: every ticket
+             equals its solo serve bit for bit and each runner key
+             captures once (captures run on the dispatch thread while the
+             clients allocate and synchronize). ``warmup(buckets=[1, 2,
+             4])`` on a fresh cache, then the first requests capture
+             nothing. The ladder: a ``session.serve`` error on (diff,
+             ``fused``) with ``fallbacks=({"fused": False}, {"compiled":
+             False})`` recovers on the two-pass rung, two errors on the
+             eager rung, bit-identical to the fault-free rows; a
+             ``scheduler.take`` fault fails exactly its ticket and the
+             thread serves on; a seeded chaos run ends every ticket
+             within its timeout. Each of the six kernels must have run
+             from a replayed graph of the phase. It prints one
+             ``scheduler: {...}`` line (dispatches, triggers, pad rows,
+             deadline misses, latencies, captures, the warmup wall).
+6. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -70,18 +94,20 @@ Phases (any failure raises and the script exits non-zero):
              as a (K, N) contiguous copy and as the transposed view of the
              K-major weight; ``library_ms`` is the faster).
 
-The last lines are the kernels JSON, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+The last lines are the ``scheduler: {...}`` line, the kernels JSON, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -97,8 +123,9 @@ from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
-from repro_torch.serve import (CompiledRunnerCache, Fault, FaultInjector,  # noqa: E402
-                               ServeSession, bucket_for, inject)
+from repro_torch.serve import (CompiledRunnerCache, DispatchFailed, Fault,  # noqa: E402
+                               FaultInjector, InjectedFault, SchedulerDied, ServeScheduler,
+                               ServeSession, bucket_for, chaos_schedule, inject)
 from repro_torch.serve import cache as serve_cache  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
@@ -765,6 +792,269 @@ def phase_serve(params, x_T, labels, sched, diff_run) -> dict:
     return out
 
 
+# --------------------------------------------------------------- scheduler
+SCHED_STEPS = 10
+SCHED_ROWS = (3, 3, 2)  # one by one: buckets 4, 4, 2; coalesced: 4 + 4
+DEADLINE_MS = 200.0  # the lone request's budget
+INTERVAL_MS = 25.0  # the async policy's granularity
+# the kernels the phase's plans run (diff, fused, a low_bits=4 segment, act)
+SCHED_KERNELS = tuple(KERNELS)
+WAIT_S = 300.0  # every result() of the phase
+
+
+def phase_scheduler(params, sched) -> dict:
+    """ServeScheduler at DiT-XL/2: coalescing, deadlines, concurrent clients
+    on a cold cache, warmup, the degradation ladder and chaos, every ticket
+    held bit for bit to the same rows served alone."""
+    gc.collect()  # the serve phase's caches hold graphs and arenas
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    zero_counts()
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def request(n, gen=g):
+        return (torch.randn((n, CFG.input_size, CFG.input_size, CFG.in_channels), generator=gen,
+                            device=DEVICE),
+                torch.randint(0, CFG.n_classes, (n,), generator=gen, device=DEVICE))
+
+    def equal(name, got, want):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"scheduler {name}: rows not finite or misshapen")
+        if not torch.equal(got, want):
+            d = (got - want).abs().max().item()
+            raise AssertionError(f"scheduler {name}: rows differ from the same rows served "
+                                 f"alone (max {d})")
+
+    def no_ladder(name, st, fired=()):
+        """A run with no session.serve fault took no rung of the ladder (on
+        the card a kernel, capture or replay error fails its tickets)."""
+        if (not any(f.site == "session.serve" for f in fired)
+                and (st["retries"], st["fallback_dispatches"]) != (0, 0)):
+            raise AssertionError(f"scheduler {name}: {st['retries']} retries, "
+                                 f"{st['fallback_dispatches']} fallback dispatches "
+                                 f"with no session.serve fault")
+
+    base = DittoPlan(steps=SCHED_STEPS, policy="diff", max_batch=4, collect_stats=False)
+    caches = []
+    out: dict = {}
+
+    def fresh_cache():
+        caches.append(CompiledRunnerCache())
+        return caches[-1]
+
+    # ---- sync coalescing: 3 + 3 + 2 as 4 + 4, both walls warm
+    cache = fresh_cache()
+    sess = ServeSession(params, CFG, sched, base, cache=cache)
+    reqs = [request(n) for n in SCHED_ROWS]
+    solo = [sess.serve(x, lab).sample for x, lab in reqs]  # captures buckets 4 and 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_by_one = [sess.serve(x, lab) for x, lab in reqs]
+    torch.cuda.synchronize()
+    wall_solo = time.perf_counter() - t0
+    for i, res in enumerate(one_by_one):
+        equal(f"one by one {i}", res.sample, solo[i])
+    s = ServeScheduler(params, CFG, sched, base, cache=cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [s.submit(x, lab) for x, lab in reqs]
+    s.flush()
+    rows = [t.result() for t in tickets]
+    torch.cuda.synchronize()
+    wall_coal = time.perf_counter() - t0
+    st = s.stats()
+    if (st["dispatches"], st["triggers"]["full"], s.pad_rows, s.naive_pad_rows()) != (2, 2, 0, 2):
+        raise AssertionError(f"scheduler sync: {st}, pad rows {s.pad_rows} "
+                             f"(one by one {s.naive_pad_rows()}); want 4 + 4, no pad row")
+    no_ladder("sync", st)
+    for i, r in enumerate(rows):
+        equal(f"sync ticket {i}", r, solo[i])
+    out["sync"] = dict(dispatches=st["dispatches"], triggers=st["triggers"], pad_rows=s.pad_rows,
+                       pad_rows_one_by_one=sum(r.pad_rows for r in one_by_one),
+                       wall_s=wall_coal, wall_one_by_one_s=wall_solo)
+    say(f"scheduler sync: 3 + 3 + 2 rows -> 4 + 4, 0 pad rows (one by one 2), every ticket == "
+        f"its solo serve; wall {wall_coal:.3f} s coalesced, {wall_solo:.3f} s one by one")
+
+    # ---- async: a lone request's deadline partial
+    latencies = []
+    lone = request(1)
+    solo_lone = sess.serve(*lone).sample
+    s = ServeScheduler(params, CFG, sched, base, cache=cache, async_mode=True,
+                       dispatch_interval_ms=INTERVAL_MS)
+    with s:
+        t = s.submit(*lone, deadline_ms=DEADLINE_MS)
+        until = time.monotonic() + WAIT_S
+        while not t.done and time.monotonic() < until:  # result() would demand it at once
+            time.sleep(0.002)
+        equal("deadline partial", t.result(timeout=WAIT_S), solo_lone)
+        st = s.stats()
+    if st["triggers"]["deadline"] != 1 or st["dispatches"] != 1:
+        raise AssertionError(f"scheduler deadline: {st['triggers']}, want one deadline partial")
+    no_ladder("deadline", st)
+    latencies.append(t.done_t - t.submit_t)
+    out["deadline"] = dict(deadline_ms=DEADLINE_MS, latency_s=latencies[-1],
+                           missed=st["deadline_misses"])
+    say(f"scheduler deadline: a lone 1-row request dispatched as a deadline partial; latency "
+        f"{latencies[-1]:.3f} s against a {DEADLINE_MS:.0f} ms budget")
+
+    # ---- async: four clients, mixed plans, a cold cache, no warmup
+    cache2 = fresh_cache()
+    half = SCHED_STEPS // 2
+    client_plans = [base, base.replace(fused=True),
+                    PlanSchedule(base, [(0, half, {}), (half, SCHED_STEPS, dict(low_bits=4))]),
+                    base.replace(policy="act")]
+    inputs, got, errors = {}, {}, []
+    s = ServeScheduler(params, CFG, sched, base, cache=cache2, async_mode=True,
+                       dispatch_interval_ms=INTERVAL_MS)
+
+    def client(c):
+        try:
+            gen = torch.Generator(device=DEVICE).manual_seed(100 + c)
+            tickets = []
+            for j in range(2):
+                inputs[(c, j)] = request(1 + (c + 2 * j) % 3, gen)  # made on the card, here
+                tickets.append((j, s.submit(*inputs[(c, j)], plan=client_plans[c],
+                                            deadline_ms=400.0 if j else None)))
+            for j, t in tickets:
+                rows = t.result(timeout=WAIT_S)
+                if not bool(torch.isfinite(rows).all()):  # a synchronize on this thread
+                    raise AssertionError(f"client {c}: non-finite rows")
+                got[(c, j)] = (rows, t.done_t - t.submit_t)
+        except Exception as e:  # raised below
+            errors.append((c, e))
+
+    with s:
+        threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=WAIT_S)
+        st = s.stats()
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"scheduler clients: {errors or 'a client did not finish'}")
+    no_ladder("clients", st)
+    for (c, j), (x, lab) in sorted(inputs.items()):
+        equal(f"client {c} request {j}", got[(c, j)][0],
+              sess.serve(x, lab, plan=client_plans[c]).sample)
+        latencies.append(got[(c, j)][1])
+    if any(n != 1 for n in cache2.capture_counts.values()):
+        raise AssertionError(f"scheduler clients: captures per key {cache2.capture_counts}")
+    lat = sorted(latencies)
+    out["clients"] = dict(dispatches=st["dispatches"], triggers=st["triggers"],
+                          pad_rows=st["pad_rows"], deadline_misses=st["deadline_misses"],
+                          keys=len(cache2), captures=cache2.n_captures)
+    out["latency_s"] = dict(p50=statistics.median(lat),
+                            p99=lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)],
+                            n=len(lat))
+    say(f"scheduler clients: 4 threads, 8 requests, 4 plans, cold cache: every ticket == its "
+        f"solo serve, {len(cache2)} keys captured once each on the dispatch thread; "
+        f"{json.dumps(out['clients'])}; latency {json.dumps(out['latency_s'])}")
+
+    # ---- warmup: the ladder 1, 2, 4 captured first; the first requests capture nothing
+    cache3 = fresh_cache()
+    s = ServeScheduler(params, CFG, sched, base, cache=cache3)
+    w = s.warmup(buckets=[1, 2, 4])
+    for name, (x, lab), want in (("3 rows", reqs[0], solo[0]), ("1 row", lone, solo_lone),
+                                 ("2 rows", reqs[2], solo[2])):
+        equal(f"after warmup, {name}", s.submit(x, lab).result(), want)
+    st = s.stats()
+    if w["captures"] != 3 or st["captures_after_warmup"] != 0:
+        raise AssertionError(f"scheduler warmup: {w}, then {st['captures_after_warmup']} "
+                             f"captures; want 3, then 0")
+    no_ladder("warmup", st)
+    out["warmup"] = dict(w, captures_after_warmup=st["captures_after_warmup"])
+    say(f"scheduler warmup: {json.dumps(out['warmup'])}")
+
+    # ---- the ladder: fused -> two-pass -> eager, bit-identical
+    ladder = base.replace(fused=True, max_retries=2,
+                          fallbacks=({"fused": False}, {"compiled": False}))
+    x, lab = reqs[0]
+    s = ServeScheduler(params, CFG, sched, ladder, cache=cache)
+    want = s.submit(x, lab).result()
+    no_ladder("ladder, no fault", s.stats())
+    out["ladder"] = {}
+    for arrivals, rung in (((0,), (8, False, True)), ((0, 1), (8, True, False))):
+        s = ServeScheduler(params, CFG, sched, ladder, cache=cache)
+        with inject(FaultInjector([Fault("session.serve", a, "error") for a in arrivals])) as inj:
+            t = s.submit(x, lab)
+            rows = t.result()
+        used = t.served_with
+        if len(inj.fired) != len(arrivals) or (used.low_bits, used.fused, used.compiled) != rung:
+            raise AssertionError(f"scheduler ladder: fired {inj.fired}, served with {used}")
+        equal(f"ladder rung {len(arrivals)}", rows, want)
+        out["ladder"][f"{len(arrivals)} fault(s)"] = dict(
+            served_with=dict(low_bits=used.low_bits, fused=used.fused, compiled=used.compiled),
+            retries=s.stats()["retries"], fallback_dispatches=s.stats()["fallback_dispatches"])
+    # a take fault fails exactly its ticket; the thread serves on
+    s = ServeScheduler(params, CFG, sched, base, cache=cache, async_mode=True,
+                       dispatch_interval_ms=INTERVAL_MS)
+    with s:
+        with inject(FaultInjector([Fault("scheduler.take", 0, "error")])):
+            t1 = s.submit(*reqs[0])
+            try:
+                t1.result(timeout=WAIT_S)
+                raise AssertionError("scheduler take: the faulted ticket was served")
+            except InjectedFault:
+                pass
+        equal("after a take fault", s.submit(*reqs[2]).result(timeout=WAIT_S), solo[2])
+        st = s.stats()
+    if (st["failed"], st["completed"], st["died"]) != (1, 1, False):
+        raise AssertionError(f"scheduler take: {st}")
+    no_ladder("take fault", st)
+    say(f"scheduler ladder: {json.dumps(out['ladder'])}; a take fault failed its one ticket "
+        f"and the thread served on")
+
+    # ---- chaos: every ticket ends, with rows or a typed error
+    sites = ("session.serve", "scheduler.policy", "scheduler.take", "scheduler.dispatch",
+             "denoise.step")
+    chaos = base.replace(max_retries=2, retry_backoff_ms=5.0, fallbacks=({"fused": False},),
+                         watchdog=True)
+    injector = chaos_schedule(11, 4, sites=sites, max_at=4)
+    ends = []
+    s = ServeScheduler(params, CFG, sched, chaos, cache=cache, async_mode=True,
+                       dispatch_interval_ms=INTERVAL_MS)
+    with inject(injector):
+        tickets = []
+        for n in (3, 4, 2, 4, 1):
+            try:
+                tickets.append(s.submit(*request(n)))
+            except SchedulerDied as e:
+                ends.append(type(e).__name__)
+        for t in tickets:
+            try:
+                if not bool(torch.isfinite(t.result(timeout=WAIT_S)).all()):
+                    raise AssertionError("scheduler chaos: non-finite rows")
+                ends.append("rows")
+            except (InjectedFault, DispatchFailed, SchedulerDied) as e:
+                ends.append(type(e).__name__)
+    try:
+        s.close(join_timeout_s=WAIT_S)
+    except SchedulerDied:
+        pass  # a policy fault kills the thread; close still returns
+    st = s.stats()
+    if len(ends) != 5 or st["live_tickets"] or st["queued_rows"]:
+        raise AssertionError(f"scheduler chaos: {ends}, {st}")
+    no_ladder("chaos", st, injector.fired)
+    out["chaos"] = dict(faults=[f"{f.kind}@{f.site}[{f.at}]" for f in injector.faults],
+                        fired=len(injector.fired), ends=ends, retries=st["retries"],
+                        watchdog_events=st["watchdog_events"])
+    say(f"scheduler chaos: every ticket ended; {json.dumps(out['chaos'])}")
+
+    # ---- the kernels ran from replayed graphs of this phase
+    ticks = launch_counts()
+    replayed: dict = {}
+    for c in caches:
+        for k, v in c.replayed_launches().items():
+            replayed[k] = replayed.get(k, 0) + v
+    idle = [k for k in SCHED_KERNELS if not replayed.get(k)]
+    if idle:
+        raise AssertionError(f"scheduler: no launch of {idle} from a replayed graph")
+    out["launches"] = dict(captured=ticks, replayed=replayed)
+    out["captures"] = sum(c.n_captures for c in caches)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -891,6 +1181,7 @@ def main() -> int:
     finally:
         cap.close()
     serving = phase_serve(params, x_T, labels, sched, diff_run)
+    scheduling = phase_scheduler(params, sched)
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -913,6 +1204,7 @@ def main() -> int:
     say(f"slice walls: {json.dumps(walls)}")
     say(f"serving: {json.dumps(serving)}")
     say(f"total {time.perf_counter() - t0:.1f} s")
+    say("scheduler: " + json.dumps(scheduling))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

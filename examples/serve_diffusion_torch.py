@@ -19,21 +19,33 @@ counters; the request log is checkpointed atomically and resumed.
     python examples/serve_diffusion_torch.py --low-bits 4    # packed-int4 low tiles
     python examples/serve_diffusion_torch.py --fused         # the fused diff flow
     python examples/serve_diffusion_torch.py --int4-from 8   # int8 early, int4 + fused late
-    python examples/serve_diffusion_torch.py --chaos 7       # seeded faults, watchdog armed
+    python examples/serve_diffusion_torch.py --deadline-ms 2000 --warmup  # async scheduler
+    python examples/serve_diffusion_torch.py --chaos 7       # seeded faults, ladder + watchdog
     python examples/serve_diffusion_torch.py --device cpu --small --steps 4   # no card
 
 It runs on the card unless ``--device cpu`` is given; ``--small`` swaps
 DiT-XL/2 for a 2-block, 64-wide DiT that the CPU serves in seconds.
-``--chaos SEED`` serves under a seeded fault schedule over the session's
-sites (``session.serve``, ``denoise.step``) with the re-anchor watchdog
-armed; a request hit by a ``session.serve`` fault is logged as failed
-(the scheduler's retry ladder is not ported yet).
+
+With ``--deadline-ms``, ``--warmup`` or ``--chaos`` the queue goes through
+the async ``ServeScheduler`` instead: each request is submitted alone (one
+row) with its latency budget, a dispatch thread coalesces them into bucket
+batches (a full bucket at once, a partial one when a budget nears), and
+``--warmup`` captures the bucket ladder's graphs first (1, 2 and 4 at the
+default ``--batch 4``; keep ``--batch`` <= 16 at DiT-XL/2, where a bucket's
+state arena takes 0.58 GB a sample, per ``chip_smoke.py`` on an NVIDIA H100
+80GB HBM3 at 700 W). ``--chaos SEED`` serves under a seeded
+fault schedule over ``session.serve`` and ``denoise.step`` with the recovery
+stack armed: a retry ladder (fused -> two-pass -> ``low_bits=8``) whose
+budget of 3 retries outlasts the 3 one-shot faults, and the re-anchor
+watchdog. Each request's sample equals the same request served alone, bit
+for bit.
 """
 import argparse
 import contextlib
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -43,7 +55,8 @@ import torch  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.kernels.common import resolve_device  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
-from repro_torch.serve import (DittoPlan, InjectedFault, PlanSchedule,  # noqa: E402
+from repro_torch.serve import (DispatchFailed, DittoPlan, InjectedFault,  # noqa: E402
+                               NumericalFault, PlanSchedule, SchedulerDied, ServeScheduler,
                                ServeSession, chaos_schedule, inject)
 from repro_torch.sim import harness  # noqa: E402
 
@@ -66,9 +79,12 @@ def make_plan(args) -> DittoPlan | PlanSchedule:
     plan = DittoPlan(steps=args.steps, compiled=not args.eager, low_bits=args.low_bits,
                      fused=args.fused, max_batch=max_batch)
     if args.chaos is not None:
-        # the numerical watchdog with the saturation re-anchor armed; neither
-        # field is part of the runner key
-        plan = plan.replace(watchdog=True, reanchor_full_frac=0.97)
+        # the dispatch ladder (fused -> two-pass -> int8) and the numerical
+        # watchdog with the saturation re-anchor; no recovery field is part
+        # of the runner key. A schedule below carries them on its base.
+        plan = plan.replace(max_retries=3, retry_backoff_ms=25.0,
+                            fallbacks=(dict(fused=False), dict(fused=False, low_bits=8)),
+                            watchdog=True, reanchor_full_frac=0.97)
     if args.int4_from is not None:
         plan = PlanSchedule(plan, [(0, args.int4_from, {}),
                                    (args.int4_from, args.steps, dict(low_bits=4, fused=True))])
@@ -81,6 +97,63 @@ def save(log: str, done: dict) -> None:
     with open(tmp, "w") as f:
         json.dump(done, f)
     os.replace(tmp, log)
+
+
+def serve_async(args, cfg, params, device, plan, done: dict, queue: list) -> dict:
+    """The async path: one submission per request, a background dispatch
+    thread coalescing them into buckets under their deadlines."""
+    injector = None
+    if args.chaos is not None:
+        # 3 one-shot faults: session.serve's for the ladder, denoise.step's
+        # for the watchdog
+        injector = chaos_schedule(args.chaos, n_faults=3,
+                                  sites=("session.serve", "denoise.step"), max_at=6)
+        print(f"[serve] chaos seed {args.chaos}: "
+              + ", ".join(f"{f.kind}@{f.site}[{f.at}]" for f in injector.faults))
+    s = ServeScheduler(params, cfg, diffusion.cosine_schedule(1000), plan, device=device,
+                       async_mode=True, dispatch_interval_ms=25.0)
+    if args.warmup:
+        w = s.warmup()
+        print(f"[serve] warmup: {w['captures']} graph(s) captured in {w['wall_s']:.2f}s")
+    t0 = time.monotonic()
+    tickets = []
+    with inject(injector) if injector is not None else contextlib.nullcontext():
+        with s:
+            for rid, cls in queue:
+                g = torch.Generator(device=device).manual_seed(1000 + rid)
+                x = torch.randn((1, cfg.input_size, cfg.input_size, cfg.in_channels),
+                                generator=g, device=device)
+                labels = torch.tensor([cls], device=device)
+                tickets.append((rid, cls, s.submit(x, labels, deadline_ms=args.deadline_ms)))
+            for rid, cls, t in tickets:
+                try:
+                    sample = t.result(timeout=600.0)
+                except (InjectedFault, DispatchFailed, NumericalFault, SchedulerDied) as err:
+                    done[rid] = {"class": cls, "error": repr(err)}
+                    print(f"[serve] request {rid}: failed ({err!r})")
+                    continue
+                if not torch.isfinite(sample).all():
+                    raise RuntimeError(f"request {rid}: non-finite sample")
+                lat = t.done_t - t.submit_t
+                rung = t.served_with
+                done[rid] = {"class": cls, "wall_s": lat,
+                             "served_with": dict(low_bits=rung.low_bits, fused=rung.fused,
+                                                 compiled=rung.compiled)}
+                print(f"[serve] request {rid}: latency {lat * 1e3:.0f} ms")
+    save(args.log, done)
+    st = s.stats()
+    print(f"[serve] served {len(tickets)} request(s) in {time.monotonic() - t0:.2f}s: "
+          f"{st['dispatches']} dispatch(es) {st['triggers']}, {st['pad_rows']} pad row(s) "
+          f"({s.naive_pad_rows()} one by one), {st['deadline_misses']} deadline miss(es), "
+          f"{st['failed']} failed")
+    print(f"[serve] runner cache: {st['runners']} runner(s), {st['captures']} capture(s), "
+          f"{st['replays']} replay(s)"
+          + (f", {st['captures_after_warmup']} after warmup" if args.warmup else ""))
+    if injector is not None:
+        print(f"[serve] chaos: {len(injector.fired)}/{len(injector.faults)} fault(s) fired, "
+              f"{st['retries']} retry(ies), {st['fallback_dispatches']} fallback "
+              f"dispatch(es), {st['watchdog_events']} watchdog re-anchor(s)")
+    return st
 
 
 def main(argv=None):
@@ -102,9 +175,16 @@ def main(argv=None):
     ap.add_argument("--int4-from", type=int, default=None, metavar="STEP",
                     help="serve a PlanSchedule: steps [0, STEP) on the base plan, "
                          "[STEP, --steps) with low_bits=4 and fused (one more runner)")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="serve through the async ServeScheduler, each request with this "
+                         "latency budget: a partial bucket dispatches when a budget nears")
+    ap.add_argument("--warmup", action="store_true",
+                    help="capture the bucket ladder's graphs before serving (implies the "
+                         "async scheduler)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="serve under a seeded fault schedule over session.serve and "
-                         "denoise.step with the re-anchor watchdog armed")
+                         "denoise.step (implies the async scheduler) with the retry ladder "
+                         "and the re-anchor watchdog armed")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' to run without")
     ap.add_argument("--small", action="store_true",
                     help="a 2-block, 64-wide DiT instead of DiT-XL/2 (for the CPU)")
@@ -115,8 +195,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = SMALL if args.small else dit.DIT_XL2
     params = build_model(cfg, args.seed, device)
-    sess = ServeSession(params, cfg, diffusion.cosine_schedule(1000), make_plan(args),
-                        device=device)
 
     done: dict = {}
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)
@@ -125,63 +203,49 @@ def main(argv=None):
             done = {int(k): v for k, v in json.load(f).items()}
         print(f"[serve] resuming: {len(done)} requests already served")
     queue = [(i, i % cfg.n_classes) for i in range(args.requests) if i not in done]
+    if args.deadline_ms is not None or args.warmup or args.chaos is not None:
+        return serve_async(args, cfg, params, device, make_plan(args), done, queue)
 
-    injector = None
-    if args.chaos is not None:
-        injector = chaos_schedule(args.chaos, n_faults=3,
-                                  sites=("session.serve", "denoise.step"), max_at=6)
-        print(f"[serve] chaos seed {args.chaos}: "
-              + ", ".join(f"{f.kind}@{f.site}[{f.at}]" for f in injector.faults))
-    failed = 0
-    with inject(injector) if injector is not None else contextlib.nullcontext():
-        while queue:
-            batch, queue = queue[:args.batch], queue[args.batch:]
-            rids = [r for r, _ in batch]
-            labels = torch.tensor([c for _, c in batch], device=device)
-            g = torch.Generator(device=device).manual_seed(1000 + rids[0])
-            x = torch.randn((len(rids), cfg.input_size, cfg.input_size, cfg.in_channels),
-                            generator=g, device=device)
-            try:
-                result = sess.serve(x, labels)
-            except InjectedFault as err:
-                failed += len(rids)
-                for rid, cls in batch:
-                    done[rid] = {"class": cls, "error": str(err)}
-                save(args.log, done)
-                print(f"[serve] batch {rids}: failed ({err})")
-                continue
-            if not torch.isfinite(result.sample).all():
-                raise RuntimeError(f"batch {rids}: non-finite sample")
-            chunk = result.chunks[0]
-            res = harness.run_designs(result.records, t_mult=64, d_mult=18,
-                                      designs=("itc", "ditto", "ditto+"))
-            summ = chunk.engine.summary()
-            dispatch_b = chunk.bucket or chunk.batch  # records are at bucket scale
-            for rid, cls in batch:
-                done[rid] = {
-                    "class": cls,
-                    "wall_s": result.wall_s / len(rids),
-                    "bucket": chunk.bucket,
-                    "cached_runner": result.captures_delta == 0,
-                    "watchdog_events": len(chunk.engine.watchdog_events),
-                    "sim_ditto_ms": res["ditto"]["time_s"] * 1e3 / dispatch_b,
-                    "sim_itc_ms": res["itc"]["time_s"] * 1e3 / dispatch_b,
-                    "bops_ratio": summ["bops"] / summ["bops_act"],
-                }
-            save(args.log, done)
-            note = ("eager (no runner)" if chunk.bucket is None else
-                    "cached runner" if result.captures_delta == 0 else
-                    f"{result.captures_delta} new capture(s)")
-            print(f"[serve] batch {rids} (bucket {chunk.bucket}, {note}): wall "
-                  f"{result.wall_s:.2f}s, sim ditto {res['ditto']['time_s'] * 1e3:.2f}ms vs "
-                  f"itc {res['itc']['time_s'] * 1e3:.2f}ms")
+    sess = ServeSession(params, cfg, diffusion.cosine_schedule(1000), make_plan(args),
+                        device=device)
+    while queue:
+        batch, queue = queue[:args.batch], queue[args.batch:]
+        rids = [r for r, _ in batch]
+        labels = torch.tensor([c for _, c in batch], device=device)
+        g = torch.Generator(device=device).manual_seed(1000 + rids[0])
+        x = torch.randn((len(rids), cfg.input_size, cfg.input_size, cfg.in_channels),
+                        generator=g, device=device)
+        result = sess.serve(x, labels)
+        if not torch.isfinite(result.sample).all():
+            raise RuntimeError(f"batch {rids}: non-finite sample")
+        chunk = result.chunks[0]
+        res = harness.run_designs(result.records, t_mult=64, d_mult=18,
+                                  designs=("itc", "ditto", "ditto+"))
+        summ = chunk.engine.summary()
+        dispatch_b = chunk.bucket or chunk.batch  # records are at bucket scale
+        for rid, cls in batch:
+            done[rid] = {
+                "class": cls,
+                "wall_s": result.wall_s / len(rids),
+                "bucket": chunk.bucket,
+                "cached_runner": result.captures_delta == 0,
+                "watchdog_events": len(chunk.engine.watchdog_events),
+                "sim_ditto_ms": res["ditto"]["time_s"] * 1e3 / dispatch_b,
+                "sim_itc_ms": res["itc"]["time_s"] * 1e3 / dispatch_b,
+                "bops_ratio": summ["bops"] / summ["bops_act"],
+            }
+        save(args.log, done)
+        note = ("eager (no runner)" if chunk.bucket is None else
+                "cached runner" if result.captures_delta == 0 else
+                f"{result.captures_delta} new capture(s)")
+        print(f"[serve] batch {rids} (bucket {chunk.bucket}, {note}): wall "
+              f"{result.wall_s:.2f}s, sim ditto {res['ditto']['time_s'] * 1e3:.2f}ms vs "
+              f"itc {res['itc']['time_s'] * 1e3:.2f}ms")
     st = sess.stats()
-    print(f"[serve] served {st['requests']} request(s) in {st['batches']} batch(es), "
-          f"{failed} failed; runner cache: {st['runners']} runner(s), {st['captures']} "
-          f"capture(s), {st['hits']} hit(s), {st['replays']} replay(s); "
+    print(f"[serve] served {st['requests']} request(s) in {st['batches']} batch(es); "
+          f"runner cache: {st['runners']} runner(s), {st['captures']} capture(s), "
+          f"{st['hits']} hit(s), {st['replays']} replay(s); "
           f"{st['watchdog_events']} watchdog re-anchor(s)")
-    if injector is not None:
-        print(f"[serve] chaos: {len(injector.fired)}/{len(injector.faults)} fault(s) fired")
     return st
 
 

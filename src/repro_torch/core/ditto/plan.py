@@ -7,8 +7,11 @@ frozen, hashable dataclass in four groups:
              launches (validated once, at construction);
   sampling : ``steps``, ``sampler``, ``policy`` — the denoising loop and
              the engine's mode policy;
-  serve    : ``compiled``, ``collect_stats``, ``max_batch``;
-  recovery : ``watchdog``, ``reanchor_full_frac`` — never part of
+  serve    : ``compiled``, ``collect_stats``, ``max_batch``,
+             ``deadline_ms`` — runtime behavior of the serving layer;
+  recovery : ``max_retries``, ``retry_backoff_ms``, ``fallbacks`` (the
+             scheduler's degradation ladder), ``watchdog``,
+             ``reanchor_full_frac`` — never part of
              :meth:`DittoPlan.cache_sig`.
 
 A plan is a runner identity: :meth:`DittoPlan.cache_sig` is the ordered
@@ -21,10 +24,10 @@ The reference's ``interpret`` has no counterpart: the device of the
 tensors decides between kernel and plain version. On the card every
 kernel tiles by 128, so :func:`check_device_block` rejects any other
 ``block`` there before a step runs; the plain versions on the CPU take any
-block. The mesh fields, the scheduler's recovery fields (``deadline_ms``,
-``max_retries``, ``retry_backoff_ms``, ``fallbacks`` and the ladder's
-``fallback_plans``) and the deprecated per-knob keyword shims (``UNSET`` /
-``plan_from_kwargs``) come with later slices (ROADMAP.md, queue 1).
+block. The mesh fields come with ``serve/mesh.py`` (ROADMAP.md, queue 1);
+of the deprecated per-knob keyword shims only the :data:`UNSET` sentinel
+is here, which ``ServeScheduler.submit(deadline_ms=)`` needs
+(``plan_from_kwargs`` has no caller in the port).
 """
 from __future__ import annotations
 
@@ -46,6 +49,20 @@ _POLICIES = ("act", "diff", "spatial", "defo", "defo+")
 #: :meth:`DittoPlan.cache_sig`. Loop-level fields (``steps``, ``sampler``,
 #: ``policy``, ``compiled``, ``max_batch``) stay constant across a schedule.
 SEGMENT_FIELDS = ("block", "collect_stats", "low_bits", "fused")
+
+#: Plan fields a degradation-ladder fallback delta may override: the
+#: segment fields plus ``compiled``, so the last rung can drop to the eager
+#: engine. Loop and queueing fields stay fixed: a fallback redispatch covers
+#: the same tickets with the same loop shape.
+FALLBACK_FIELDS = SEGMENT_FIELDS + ("compiled",)
+
+#: Recovery-policy fields. None of them changes what a step launches, so
+#: none may appear in :meth:`DittoPlan.cache_sig`: two plans differing only
+#: in how they recover share every runner.
+ROBUSTNESS_FIELDS = (
+    "max_retries", "retry_backoff_ms", "fallbacks", "watchdog",
+    "reanchor_full_frac",
+)
 
 
 def _canon_delta(delta) -> tuple:
@@ -77,7 +94,11 @@ class DittoPlan:
     compiled: bool = True
     collect_stats: bool = True
     max_batch: int = DEFAULT_MAX_BATCH
+    deadline_ms: float | None = None  # per-request latency budget (SLO); None = no budget
     # --- recovery config: never part of cache_sig() --------------------------
+    max_retries: int = 0  # extra dispatch attempts after the first fails
+    retry_backoff_ms: float = 0.0  # base backoff, doubled per retry (capped)
+    fallbacks: tuple = ()  # degradation ladder: plan deltas over FALLBACK_FIELDS
     watchdog: bool = False  # per-step finite guard + re-anchor on the compiled path
     reanchor_full_frac: float | None = None  # Δ-saturation threshold; None = off
 
@@ -94,12 +115,28 @@ class DittoPlan:
             raise ValueError(
                 f"max_batch must be a power of two (the canonical bucket "
                 f"ladder), got {self.max_batch}")
+        if self.deadline_ms is not None and not self.deadline_ms > 0:
+            raise ValueError(
+                f"deadline_ms must be > 0 (or None for no budget), got {self.deadline_ms}")
         if self.sampler not in _SAMPLERS:
             raise ValueError(f"sampler must be one of {_SAMPLERS}, got {self.sampler!r}")
         if self.policy not in _POLICIES:
             raise ValueError(f"policy must be one of {_POLICIES}, got {self.policy!r}")
 
     def _validate_recovery(self) -> None:
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_ms < 0:
+            raise ValueError(f"retry_backoff_ms must be >= 0, got {self.retry_backoff_ms}")
+        canon = tuple(_canon_delta(d) for d in tuple(self.fallbacks))
+        object.__setattr__(self, "fallbacks", canon)
+        for delta in canon:
+            bad = sorted(k for k, _ in delta if k not in FALLBACK_FIELDS)
+            if bad:
+                raise ValueError(
+                    f"fallback delta overrides non-fallback fields {bad}; "
+                    f"allowed fields are {FALLBACK_FIELDS}")
+            self.replace(**dict(delta), fallbacks=())  # each rung must be a valid plan
         if self.reanchor_full_frac is not None:
             if not 0.0 < self.reanchor_full_frac <= 1.0:
                 raise ValueError(
@@ -128,6 +165,16 @@ class DittoPlan:
         accessors rely on it). The loop, serve and recovery fields are
         absent: plans differing only there run the same step."""
         return (self.block, self.collect_stats, self.low_bits, self.fused)
+
+    def fallback_plans(self) -> tuple:
+        """The resolved degradation ladder: one :class:`DittoPlan` per
+        ``fallbacks`` delta, in order. Rungs carry no recovery policy of
+        their own (``max_retries=0``, no further fallbacks): the scheduler
+        walks the ladder, one rung per retry, and it must not recurse.
+        ``watchdog`` / ``reanchor_full_frac`` are inherited."""
+        return tuple(
+            self.replace(**dict(delta), max_retries=0, retry_backoff_ms=0.0, fallbacks=())
+            for delta in self.fallbacks)
 
 
 #: Default plan for the bare eager engine path (``make_denoise_fn`` with no
@@ -226,7 +273,23 @@ class PlanSchedule:
         # segment reads its own plan's
         return self.base.collect_stats
 
-    # The watchdog guards the whole loop, so it delegates too.
+    @property
+    def deadline_ms(self) -> float | None:
+        return self.base.deadline_ms
+
+    # The recovery policy governs the whole dispatch, so it delegates too.
+    @property
+    def max_retries(self) -> int:
+        return self.base.max_retries
+
+    @property
+    def retry_backoff_ms(self) -> float:
+        return self.base.retry_backoff_ms
+
+    @property
+    def fallbacks(self) -> tuple:
+        return self.base.fallbacks
+
     @property
     def watchdog(self) -> bool:
         return self.base.watchdog
@@ -234,6 +297,11 @@ class PlanSchedule:
     @property
     def reanchor_full_frac(self) -> float | None:
         return self.base.reanchor_full_frac
+
+    def fallback_plans(self) -> tuple:
+        """The ladder of a scheduled dispatch: its rungs are constant plans
+        (a dispatch that already failed drops the per-segment variation)."""
+        return self.base.fallback_plans()
 
     # ------------------------------------------------------------------ api
     def plan_for(self, step: int) -> DittoPlan:
@@ -315,6 +383,21 @@ def segment_view(plan):
         return plan.normalized().segment_plans()
     plan = plan.normalized()
     return ((0, plan.steps, plan),)
+
+
+class _Unset:
+    """Sentinel telling "keyword not passed" from any real value."""
+
+    def __repr__(self):
+        return "<unset>"
+
+
+UNSET = _Unset()
+
+
+def is_unset(v) -> bool:
+    """True when ``v`` is the :data:`UNSET` sentinel (keyword not passed)."""
+    return isinstance(v, _Unset)
 
 
 def check_device_block(plan, device) -> None:

@@ -84,8 +84,25 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = 
 # ---------------------------------------------------------------------------
 
 
+# Rows of one 2-D product block (see ``dense``).
+ROW_BLOCK = 16
+
+
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ val(params["w"]).to(x.dtype)
+    w = val(params["w"]).to(x.dtype)
+    if x.dim() == 2:
+        # A BLAS picks its algorithm, and so its summation order, by the
+        # shape: one row takes a matrix-vector path on the CPU and on the
+        # card, and cuBLAS sums other row counts in other orders too. A 2-D
+        # product (one row a sample: the conditioning products) therefore
+        # runs as zero-padded blocks of ROW_BLOCK rows, each its own
+        # (ROW_BLOCK, K) @ (K, N) product, so a row gets the same bits
+        # whatever number of rows it came with.
+        m = x.shape[0]
+        blocks = F.pad(x, (0, 0, 0, -m % ROW_BLOCK)).split(ROW_BLOCK)
+        y = torch.cat([b @ w for b in blocks])[:m]
+    else:
+        y = x @ w
     if "b" in params:
         y = y + val(params["b"]).to(y.dtype)
     return y

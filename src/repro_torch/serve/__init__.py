@@ -11,9 +11,12 @@ Mirror of the parts of ``src/repro/serve/`` ported so far:
   :class:`ServeSession` — the request front end over
       ``sim.harness.serve_records``;
   :mod:`faults` — seeded fault injection driving the recovery paths (the
-      re-anchor watchdog on the session path).
+      scheduler's retry/fallback ladder and the re-anchor watchdog);
+  :class:`ServeScheduler` — continuous batching across submissions (sync
+      coalescing, an async dispatch thread with deadlines and shedding,
+      the degradation ladder, graph warmup); one :class:`Ticket` a request.
 
-The scheduler and the mesh come with later slices (ROADMAP.md, queue 1).
+The mesh comes with a later slice (ROADMAP.md, queue 1).
 """
 from ..core.ditto.plan import DittoPlan, PlanSchedule
 from . import faults
@@ -21,6 +24,7 @@ from .bucketing import DEFAULT_MAX_BATCH, bucket_for, pad_batch
 from .cache import CompiledRunnerCache, RunnerKey, cfg_signature
 from .faults import (Fault, FaultInjector, InjectedFault, NumericalFault,
                      ResourceExhausted, chaos_schedule, inject)
+from .scheduler import DispatchFailed, RequestShed, SchedulerDied, ServeScheduler, Ticket
 from .session import ChunkResult, ServeResult, ServeSession
 
 __all__ = [
@@ -33,6 +37,11 @@ __all__ = [
     "ChunkResult",
     "ServeResult",
     "ServeSession",
+    "ServeScheduler",
+    "Ticket",
+    "SchedulerDied",
+    "DispatchFailed",
+    "RequestShed",
     "DittoPlan",
     "PlanSchedule",
     "faults",

@@ -45,6 +45,12 @@ happen there), as PyTorch's capture recipe does. All graphs share one
 memory pool and replay under the cache's lock. A capture or a replay that
 fails raises; nothing falls back to an uncaptured or a CPU step.
 
+A capture runs with ``capture_error_mode="thread_local"``: only the
+capturing thread is barred from synchronizing CUDA calls while it lasts.
+Under the default ``"global"`` mode a ``cudaMalloc`` or a synchronize on
+any other thread (a client of ``ServeScheduler``'s dispatch thread making
+its next request) would fail, or break the capture.
+
 The wrappers' launch counters tick while a step is captured, not when it
 is replayed: :attr:`CompiledRunnerCache.capture_launches` keeps each key's
 launches per capture and :meth:`CompiledRunnerCache.replayed_launches`
@@ -374,7 +380,7 @@ class CompiledRunnerCache:
             self._pool = torch.cuda.graph_pool_handle()
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             out, _, aux = runner.step(*args)
             flat, keys = _flat_aux(aux)
         after = _launch_counts()
@@ -412,17 +418,19 @@ class CompiledRunnerCache:
             self.capture_counts.setdefault(key, 0)
             return runner
 
-    def warmup(self, cfg, modes: dict[str, str], plans, buckets, *, params) -> dict:
+    def warmup(self, cfg, modes: dict[str, str], plans, buckets, *, params,
+               labels: bool | None = None) -> dict:
         """Capture the graphs of a bucket ladder before the first request: for
         each bucket, one eager calibration step of an act-policy engine on
         seeded latents gives the arena its shapes, then each distinct
         segment plan of ``plans`` (plans or schedules) captures its graph
-        under ``modes``, with labels where ``cfg`` has classes (on the CPU:
-        runs its step once). ``params`` is the tree the session serves; its
-        device is the warmup's. Returns ``{"captures": the captures it
-        made}``."""
+        under ``modes`` (on the CPU: runs its step once). ``labels`` says
+        whether requests pass class labels (a graph per presence; default:
+        whether ``cfg`` has classes). ``params`` is the tree the session
+        serves; its device is the warmup's. Returns ``{"captures": the
+        captures it made}``."""
         dev = next(t for _, t in _leaves(params)).device
-        labels = bool(cfg.n_classes)
+        labels = bool(cfg.n_classes) if labels is None else labels
         before = self.n_captures
         for bucket in buckets:
             runners = {id(r): r for r in (self.step_for(cfg, modes, seg, bucket=bucket)

@@ -1,9 +1,7 @@
 """Deterministic fault injection for the serving stack.
 
 Mirror of ``src/repro/serve/faults.py`` (which imports nothing from its
-package either); :func:`corrupt` works on tensors. The scheduler sites
-have no caller in the port until ``serve/scheduler.py`` is ported
-(ROADMAP.md, queue 1).
+package either); :func:`corrupt` works on tensors.
 
 Every recovery path in the scheduler/session/denoise stack is driven by
 faults that are *seeded and site-addressable*: a :class:`Fault` names a

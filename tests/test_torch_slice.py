@@ -128,8 +128,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "examples" / "serve_diffusion_torch.py"] + sorted(
         (ROOT / "benchmarks").glob("torch_*.py"))
-    assert len(files) > 25
-    assert ROOT / "src" / "repro_torch" / "serve" / "session.py" in files
+    assert len(files) >= 44
+    for module in ("session.py", "scheduler.py"):
+        assert ROOT / "src" / "repro_torch" / "serve" / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
