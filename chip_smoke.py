@@ -85,7 +85,25 @@ Phases (any failure raises and the script exits non-zero):
              from a replayed graph of the phase. It prints one
              ``scheduler: {...}`` line (dispatches, triggers, pad rows,
              deadline misses, latencies, captures, the warmup wall).
-6. times   — each kernel on the inputs the slice gave it (the last call at
+6. train   — DiT-XL/2 training at full width and depth from
+             ``configs/dit_xl2.py`` (bfloat16 params, float32 compute):
+             ``init_state``, ``make_train_step`` with ``make_optimizer(base_lr
+             =3e-4)`` (TrainDriver's warmup for a 20-step run), 20 steps at
+             B = 32 on ``batch_for``; every loss finite and the last 5
+             losses' mean below the first; it prints the median step wall,
+             samples/s, peak memory and the step's matmul FLOP (formula in
+             ``train_flops``) against the card's float32 peak. Then
+             ``make_denoise_step(int8=True)`` on the trained weights,
+             quantized (B = 2): each of its 7 L + 5 products launches
+             ``int8_matmul`` and equals the plain version on the same
+             operands exactly (the conditioning products at M = 2,
+             patch_embed at K = 16, the block layers at M = 512); the step
+             is within 0.1 relative L2 of the float step; both walls
+             printed. Last, a resume at
+             full width and depth 2 through ``TrainDriver``: 8 steps
+             straight against 4, a restart from the checkpoint and 4 more,
+             the last losses within 1e-5 (and whether they are bit-identical).
+7. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -94,12 +112,14 @@ Phases (any failure raises and the script exits non-zero):
              as a (K, N) contiguous copy and as the transposed view of the
              K-major weight; ``library_ms`` is the faster).
 
-The last lines are the ``scheduler: {...}`` line, the kernels JSON, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the ``scheduler: {...}`` and ``training: {...}`` lines,
+the kernels JSON, the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -107,6 +127,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -115,13 +136,18 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch import configs, tree  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan, PlanSchedule, dit_runner  # noqa: E402
+from repro_torch.data.synthetic import DataCfg, batch_for  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
 from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch.train import TrainDriver  # noqa: E402
+from repro_torch.models import dit_int8  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.serve import (CompiledRunnerCache, DispatchFailed, Fault,  # noqa: E402
                                FaultInjector, InjectedFault, SchedulerDied, ServeScheduler,
@@ -396,8 +422,8 @@ WRAPPERS = ("int8_matmul", "diff_encode", "ditto_diff_matmul", "diff_encode_fuse
 class Capture:
     """Wraps the kernel entry points that ``ops`` calls: counts calls per
     (kernel, shape) and keeps the last call's arguments at each shape, so
-    phase 4 times every kernel on the inputs the main path gave it (a diff
-    GEMM call with ``low_bits=4`` counts as its own kernel). It also wraps
+    the times phase runs every kernel on the inputs the main path gave it
+    (a diff GEMM call with ``low_bits=4`` counts as its own kernel). It also wraps
     the two ``ops`` functions the compiled pass calls, to note each call's
     (M, K, N) before ``ops`` pads it to the 128-tile grid."""
 
@@ -1055,6 +1081,183 @@ def phase_scheduler(params, sched) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- training
+TRAIN_ARCH = configs.get("dit-xl2")  # bf16 params, as the config says
+TRAIN_BATCH = 32
+TRAIN_STEPS = 20
+FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+Q8_BATCH = 2
+Q8_KERNELS = ("int8_matmul",)  # the W8A8 step's products
+RESUME_LAYERS = 2  # full width, cut depth: small checkpoints
+RESUME_BATCH = 8
+RESUME_STEPS = 8  # straight; and 4 + a restart + 4
+
+
+def train_flops(cfg: dit.DiTCfg, batch: int) -> int:
+    """Matmul FLOP of one train step: 3 x the forward's (the backward runs
+    two products for each forward product). Forward, per sample: L x [T x
+    (8 d^2 for q, k, v, o + 16 d^2 for the MLP's d -> 4d -> d + 4 T d for
+    QK^T and PV) + 12 d^2 for the adaLN projection d -> 6d] + 4 T p d
+    (patch embedding and the final projection, p = patch_dim) + 2 (256 d +
+    d^2 + 2 d^2) (the timestep MLP and the final adaLN). LayerNorm,
+    softmax, activations and the optimizer are not counted."""
+    d, t, L, p = cfg.d_model, cfg.n_tokens, cfg.n_layers, cfg.patch_dim
+    per_layer = t * (8 * d * d + 16 * d * d + 4 * t * d) + 12 * d * d
+    return 3 * batch * (L * per_layer + 4 * t * p * d + 2 * (256 * d + 3 * d * d))
+
+
+def synced_wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_train() -> dict:
+    """DiT-XL/2 training at full width and depth, the W8A8 step on its
+    trained weights, and a depth-2 resume through TrainDriver."""
+    gc.collect()  # the earlier phases' caches hold graphs and arenas
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    arch = TRAIN_ARCH
+    cfg = train_steps.make_dit_model(arch)
+    out: dict = {}
+
+    # ---- throughput: TRAIN_STEPS steps at TRAIN_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    # the optimizer TrainDriver builds for a run of TRAIN_STEPS steps
+    opt = train_steps.make_optimizer(arch, base_lr=3e-4, total=TRAIN_STEPS,
+                                     warmup=train_steps.driver_warmup(TRAIN_STEPS))
+    (state, init_s) = synced_wall(lambda: train_steps.init_state(arch, 0, opt, device=DEVICE))
+    train = train_steps.make_train_step(arch, opt)
+    dc = DataCfg(seed=0, batch=TRAIN_BATCH)
+    losses, walls = [], []
+    for step in range(TRAIN_STEPS):
+        def one():
+            nonlocal state
+            state, m = train(state, batch_for(arch, dc, step, device=DEVICE))
+            return float(m["loss"])
+        loss, wall = synced_wall(one)
+        losses.append(loss)
+        walls.append(wall)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    step_s = statistics.median(walls)
+    flops = train_flops(cfg, TRAIN_BATCH)
+    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    out["train"] = dict(
+        arch=arch.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=TRAIN_BATCH,
+        param_dtype=arch.param_dtype, params_m=n_params / 1e6, init_s=init_s, losses=losses,
+        step_walls_s=walls, step_wall_s_median=step_s, samples_per_s=TRAIN_BATCH / step_s,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, held_before_gib=held,
+        flop_per_step=flops, tflops=flops / step_s / 1e12,
+        fp32_peak_share=flops / step_s / FP32_FLOPS_PER_S)
+    say(f"train: DiT-XL/2 {cfg.n_layers} x {cfg.d_model}, {n_params / 1e6:.1f} M params "
+        f"({arch.param_dtype}), B = {TRAIN_BATCH}, {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (last 5 mean {statistics.mean(losses[-5:]):.4f}); median step "
+        f"{step_s * 1e3:.1f} ms, {TRAIN_BATCH / step_s:.1f} samples/s; peak "
+        f"{out['train']['peak_gib']:.2f} GiB; {flops / 1e12:.2f} TFLOP a step (3 B [L (T (24 d^2 "
+        f"+ 4 T d) + 12 d^2) + 4 T p d + 2 (256 d + 3 d^2)]: matmuls, forward and backward), "
+        f"{flops / step_s / 1e12:.2f} TFLOP/s = "
+        f"{100 * flops / step_s / FP32_FLOPS_PER_S:.1f} % of the fp32 peak")
+
+    # ---- the W8A8 step on the trained weights, against the float step
+    params = state["params"]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    qparams = dit_int8.quantize_params(params, cfg)
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    batch = {"latents": torch.randn((Q8_BATCH, cfg.input_size, cfg.input_size, cfg.in_channels),
+                                    generator=g, device=DEVICE),
+             "t": torch.tensor([700.0, 500.0], device=DEVICE)[:Q8_BATCH],
+             "labels": torch.randint(0, cfg.n_classes, (Q8_BATCH,), generator=g, device=DEVICE)}
+    q8, fp = train_steps.make_denoise_step(arch, int8=True), train_steps.make_denoise_step(arch)
+    # the counted run: every product it launches is held to the plain
+    # version on the same operands, exactly (an int8 product is exact),
+    # at each (x, W) shape the step gives the kernel
+    held: dict = {}
+    kernel_route = ops.int8_act_matmul
+
+    def held_exactly(x_q, w_q, **kw):
+        y = kernel_route(x_q, w_q, **kw)
+        want = ref.int8_matmul_ref(x_q, w_q, w_transposed=kw.get("w_transposed", False))
+        key = f"x{list(x_q.shape)} w{list(w_q.shape)}"
+        if not torch.equal(y, want):
+            raise AssertionError(f"w8a8: int8_matmul differs from its plain version at {key}: "
+                                 f"{int((y != want).sum())} entries")
+        held[key] = held.get(key, 0) + 1
+        return y
+
+    ops.int8_act_matmul = held_exactly
+    try:
+        zero_counts()
+        y_q = q8(qparams, batch)
+        per_step = launch_counts()
+    finally:
+        ops.int8_act_matmul = kernel_route
+    # per block: mod, q, k, v, o, wi, wo; then patch_embed, t_mlp1, t_mlp2,
+    # final_mod, final_out
+    n_products = 7 * cfg.n_layers + 5
+    if sum(held.values()) != n_products:
+        raise AssertionError(f"w8a8: {sum(held.values())} products held, want {n_products}")
+    short = {k: per_step[k] for k in Q8_KERNELS if per_step[k] != n_products}
+    if short:
+        raise AssertionError(f"w8a8: launches {short}, want {n_products} each")
+    y_f = fp(params, batch)
+    for name, y in (("w8a8", y_q), ("float", y_f)):
+        if y.shape != batch["latents"].shape or not torch.isfinite(y).all():
+            raise AssertionError(f"{name} step: output not finite or misshapen")
+    rel = float(torch.linalg.norm(y_q - y_f) / torch.linalg.norm(y_f))
+    q8_walls = [synced_wall(lambda: q8(qparams, batch))[1] for _ in range(5)]
+    fp_walls = [synced_wall(lambda: fp(params, batch))[1] for _ in range(5)]
+    out["w8a8"] = dict(batch=Q8_BATCH, rel_l2_vs_float=rel,
+                       launches_per_step={k: v for k, v in per_step.items() if v},
+                       held_exact_per_shape=held,
+                       wall_ms=statistics.median(q8_walls) * 1e3,
+                       float_wall_ms=statistics.median(fp_walls) * 1e3)
+    if not rel < 0.1:
+        raise AssertionError(f"w8a8: relative L2 error {rel:.4f} against the float step (>= 0.1)")
+    say(f"train w8a8: B = {Q8_BATCH}, {n_products} products equal to the plain version at "
+        f"{len(held)} shapes, relative L2 {rel:.4f} against the float step; "
+        f"{json.dumps(out['w8a8'])}")
+    del params, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- resume at full width, depth RESUME_LAYERS, through TrainDriver
+    arch2 = dataclasses.replace(arch, n_layers=RESUME_LAYERS)
+    kw = dict(batch=RESUME_BATCH, total_steps=RESUME_STEPS, ckpt_every=0, device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = TrainDriver(arch2, workdir=os.path.join(tmp, "a"), **kw)
+        _, t_straight = synced_wall(straight.run)
+        first = TrainDriver(arch2, workdir=os.path.join(tmp, "b"), **kw)
+        _, t_first = synced_wall(lambda: first.run(steps=RESUME_STEPS // 2))
+        resumed = TrainDriver(arch2, workdir=os.path.join(tmp, "b"), **kw)
+        _, t_resumed = synced_wall(resumed.run)
+        ckpt_mib = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                       os.walk(os.path.join(tmp, "a")) for f in fs) / 2**20
+    want = [m["loss"] for m in straight.metrics_log]
+    got = [m["loss"] for m in resumed.metrics_log]
+    if [m["step"] for m in resumed.metrics_log] != list(range(RESUME_STEPS // 2, RESUME_STEPS)):
+        raise AssertionError(f"resume: steps {[m['step'] for m in resumed.metrics_log]}")
+    diff = abs(got[-1] - want[-1])
+    out["resume"] = dict(layers=RESUME_LAYERS, batch=RESUME_BATCH, losses_straight=want,
+                         losses_resumed=got, last_loss_diff=diff,
+                         bit_identical=got == want[RESUME_STEPS // 2:],
+                         checkpoint_mib=ckpt_mib,
+                         walls_s=dict(straight=t_straight, first=t_first, resumed=t_resumed))
+    if not diff < 1e-5:
+        raise AssertionError(f"resume: last loss {got[-1]} against {want[-1]} straight")
+    say(f"train resume: {json.dumps(out['resume'])}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -1182,6 +1385,8 @@ def main() -> int:
         cap.close()
     serving = phase_serve(params, x_T, labels, sched, diff_run)
     scheduling = phase_scheduler(params, sched)
+    del params, x_T, labels, diff_run  # the training phase needs the card's memory
+    training = phase_train()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -1205,6 +1410,7 @@ def main() -> int:
     say(f"serving: {json.dumps(serving)}")
     say(f"total {time.perf_counter() - t0:.1f} s")
     say("scheduler: " + json.dumps(scheduling))
+    say("training: " + json.dumps(training))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

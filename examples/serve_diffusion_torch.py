@@ -3,12 +3,16 @@ image-generation requests through one ``repro_torch.serve.ServeSession``.
 
 The port's counterpart of ``examples/serve_diffusion.py``. The session is
 configured by ONE ``DittoPlan`` (the flags fill its fields) and serves
-DiT-XL/2 with random weights from ``--seed`` (the adaLN ``mod`` weights
-drawn N(0, 0.02) so the blocks reach the sample; training is not ported
-yet). Each batch runs the quantized DDIM loop with Defo: steps 1-2 on the
-eager calibration engine, then the frozen per-layer modes through the
-hand-written Hopper kernels (act layers -> ``int8_matmul``, diff layers ->
-``diff_encode`` + ``ditto_diff_matmul``). The session pads ragged batches
+DiT-XL/2 with weights from ``--seed``: random (the adaLN ``mod`` weights
+drawn N(0, 0.02) so the blocks reach the sample), or, with
+``--train-steps N``, trained first for N steps on the synthetic latent
+mixture through the port's train step (``repro_torch.launch.steps``, the
+step ``TrainDriver`` runs), as the reference's ``build_model`` trains its
+DiT (base lr 2e-3, batch 16). Each batch runs the quantized DDIM loop
+with Defo: steps 1-2 on the eager calibration engine, then the frozen
+per-layer modes through the hand-written Hopper kernels (act layers ->
+``int8_matmul``, diff layers -> ``diff_encode`` + ``ditto_diff_matmul``).
+The session pads ragged batches
 to power-of-two buckets and keeps one runner per (modes,
 ``plan.cache_sig()``, bucket): on the card one captured CUDA graph,
 replayed every later step of every later batch of that key. Per request it
@@ -21,6 +25,7 @@ counters; the request log is checkpointed atomically and resumed.
     python examples/serve_diffusion_torch.py --int4-from 8   # int8 early, int4 + fused late
     python examples/serve_diffusion_torch.py --deadline-ms 2000 --warmup  # async scheduler
     python examples/serve_diffusion_torch.py --chaos 7       # seeded faults, ladder + watchdog
+    python examples/serve_diffusion_torch.py --train-steps 200    # train, then serve
     python examples/serve_diffusion_torch.py --device cpu --small --steps 4   # no card
 
 It runs on the card unless ``--device cpu`` is given; ``--small`` swaps
@@ -42,6 +47,7 @@ for bit.
 """
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -52,25 +58,55 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
+from repro_torch.data.synthetic import DataCfg, batch_for  # noqa: E402
 from repro_torch.kernels.common import resolve_device  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
+from repro_torch.tree import map_tree  # noqa: E402
 from repro_torch.serve import (DispatchFailed, DittoPlan, InjectedFault,  # noqa: E402
                                NumericalFault, PlanSchedule, SchedulerDied, ServeScheduler,
                                ServeSession, chaos_schedule, inject)
 from repro_torch.sim import harness  # noqa: E402
 
-SMALL = dit.DiTCfg(d_model=64, n_layers=2, n_heads=2, patch=2, in_channels=4, input_size=8,
-                   n_classes=8)
+# a 2-block, 64-wide DiT with 2 heads and 8 classes (the CPU's model)
+ARCH_SMALL = dataclasses.replace(configs.get("dit-xl2").smoke(), n_heads=2, n_kv_heads=2,
+                                 head_dim=32, n_classes=8)
+TRAIN_BATCH = 16  # the reference's build_model trains at batch 16, base lr 2e-3
+TRAIN_LR = 2e-3
 
 
-def build_model(cfg: dit.DiTCfg, seed: int, device: torch.device) -> dict:
-    """Random DiT params from ``seed`` on ``device``."""
+def build_model(arch: configs.ArchConfig, seed: int, device: torch.device,
+                train_steps_n: int = 0) -> dict:
+    """DiT params from ``seed`` on ``device``: random, or trained for
+    ``train_steps_n`` steps first."""
+    if train_steps_n:
+        return train_model(arch, seed, device, train_steps_n)
     g = torch.Generator(device=device).manual_seed(seed)
-    params = dit.init(g, cfg, device=device)
+    params = dit.init(g, train_steps.make_dit_model(arch), device=device)
     # adaLN-Zero zeroes every block's gates; give the blocks a say
     params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
     return params
+
+
+def train_model(arch: configs.ArchConfig, seed: int, device: torch.device, n: int) -> dict:
+    """``n`` steps of the port's train step from ``init_state``, as the
+    reference's ``build_model``; the params come back in float32 (a
+    bfloat16 config's weights widen exactly)."""
+    opt = train_steps.make_optimizer(arch, base_lr=TRAIN_LR, total=n)
+    state = train_steps.init_state(arch, seed, opt, device=device)
+    train = train_steps.make_train_step(arch, opt)
+    dc = DataCfg(seed=seed, batch=TRAIN_BATCH)
+    t0 = time.monotonic()
+    losses = []
+    for step in range(n):
+        state, m = train(state, batch_for(arch, dc, step, device=device))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    print(f"[serve] trained {arch.name} ({arch.n_layers} x {arch.d_model}) for {n} step(s) "
+          f"in {time.monotonic() - t0:.2f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return map_tree(lambda a: a.to(torch.float32), state["params"])
 
 
 def make_plan(args) -> DittoPlan | PlanSchedule:
@@ -188,13 +224,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' to run without")
     ap.add_argument("--small", action="store_true",
                     help="a 2-block, 64-wide DiT instead of DiT-XL/2 (for the CPU)")
+    ap.add_argument("--train-steps", type=int, default=0, metavar="N",
+                    help="train the DiT for N steps before serving (0: random weights)")
     args = ap.parse_args(argv)
     if args.int4_from is not None and not 0 < args.int4_from < args.steps:
         ap.error(f"--int4-from must be inside (0, {args.steps})")
 
     device = resolve_device(args.device)
-    cfg = SMALL if args.small else dit.DIT_XL2
-    params = build_model(cfg, args.seed, device)
+    arch = ARCH_SMALL if args.small else configs.get("dit-xl2")
+    cfg = train_steps.make_dit_model(arch)
+    params = build_model(arch, args.seed, device, args.train_steps)
 
     done: dict = {}
     os.makedirs(os.path.dirname(os.path.abspath(args.log)), exist_ok=True)

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .kernels.common import resolve_device
-from .nn.core import map_tree
+from .tree import map_tree
 
 
 def params_from_numpy(tree: dict, *, device=None) -> dict:

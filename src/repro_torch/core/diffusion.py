@@ -1,4 +1,4 @@
-"""Diffusion process substrate: noise schedules, DDIM/PLMS samplers.
+"""Diffusion process substrate: noise schedules, q_sample, DDIM/PLMS samplers.
 
 Mirror of ``src/repro/core/diffusion.py``. The samplers drive a generic
 ``denoise_fn(x_t, t, labels) -> eps_hat``; Ditto wraps that callable with
@@ -46,6 +46,17 @@ def cosine_schedule(T: int = 1000, s: float = 8e-3) -> NoiseSchedule:
     abar = f / f[0]
     betas = torch.clip(1 - abar[1:] / abar[:-1], 1e-6, 0.999)
     return NoiseSchedule(betas)
+
+
+def q_sample(sched: NoiseSchedule, x0, t, eps):
+    """Forward process: x_t = sqrt(abar_t) x0 + sqrt(1-abar_t) eps.
+
+    ``abar`` is float32, so a bfloat16 ``x0`` / ``eps`` promotes to a float32
+    ``x_t``, as in the reference. The schedule may lie on the CPU: its
+    ``alpha_bars`` follow ``t`` to its device."""
+    abar = sched.alpha_bars.to(t.device)[t]
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    return torch.sqrt(abar).reshape(shape) * x0 + torch.sqrt(1 - abar).reshape(shape) * eps
 
 
 def ddim_timesteps(T: int, steps: int) -> list[int]:

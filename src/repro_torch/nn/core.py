@@ -31,13 +31,6 @@ def val(x: Any) -> torch.Tensor:
     return x.value if isinstance(x, Param) else x
 
 
-def map_tree(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a nested dict of params."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def divide(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as a true division in ``x``'s dtype on ``x``'s device.
 

@@ -20,9 +20,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.common import resolve_device
+from ..tree import map_tree
 from . import attention as attn
 from . import core, mlp
-from .core import map_tree, val
+from .core import val
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,15 @@ def init(gen: torch.Generator, cfg: DiTCfg, *, device=None, dtype=torch.float32)
     return map_tree(lambda a: a.to(dev), p)
 
 
+def label_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``table[labels]`` as a one-hot product. The product has the gather's
+    bits (one term of each sum is not zero; TF32 stays off, PyTorch's
+    default), and its backward is a product too, where the gather's
+    backward adds rows with atomics, in an order that changes from run to
+    run on the card."""
+    return F.one_hot(labels.to(torch.int64), table.shape[0]).to(table.dtype) @ table
+
+
 def _modulate(x, shift, scale):
     return x * (1 + scale[:, None, :]) + shift[:, None, :]
 
@@ -137,10 +147,14 @@ def apply(params: dict, cfg: DiTCfg, latents: torch.Tensor, t: torch.Tensor,
     c = timestep_embedding(t, 256)
     c = core.dense(params["t_mlp2"], F.silu(core.dense(params["t_mlp1"], c.to(latents.dtype))))
     if labels is not None and "label_embed" in params:
-        c = c + val(params["label_embed"]).to(latents.dtype)[labels]
+        c = c + label_rows(val(params["label_embed"]).to(latents.dtype), labels)
 
-    for i in range(cfg.n_layers):  # the reference scans over the stacked blocks
-        x = block_apply(map_tree(lambda a: val(a)[i], params["blocks"]), cfg, x, c)
+    # the reference scans over the stacked blocks; each stacked leaf is
+    # unbound once (indexing it per layer would make autograd build a
+    # zero tensor the size of the whole stack for every layer's backward)
+    layers = map_tree(lambda a: val(a).unbind(0), params["blocks"])
+    for i in range(cfg.n_layers):
+        x = block_apply(map_tree(lambda a: a[i], layers), cfg, x, c)
 
     mod = core.dense(params["final_mod"], F.silu(c))
     shift, scale = torch.chunk(mod, 2, dim=-1)

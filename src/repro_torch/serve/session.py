@@ -30,7 +30,7 @@ import torch
 
 from ..core.ditto.plan import DittoPlan, PlanSchedule, check_device_block
 from ..kernels.common import resolve_device
-from ..nn.core import map_tree
+from ..tree import map_tree
 from ..sim import harness
 from . import faults
 from .bucketing import bucket_for

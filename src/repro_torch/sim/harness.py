@@ -17,7 +17,7 @@ from ..core.ditto.hwmodel import CAMBRICON_D, DIFFY, DITTO_HW, ITC
 from ..core.ditto.plan import DittoPlan, PlanSchedule, check_device_block
 from ..kernels.common import resolve_device
 from ..nn import dit as dit_mod
-from ..nn.core import map_tree
+from ..tree import map_tree
 from . import cycles
 
 DESIGN_HW = {

@@ -38,6 +38,7 @@ from repro_torch.core.ditto import bops, classify, defo, quant  # noqa: E402
 from repro_torch.core.ditto.compiled import CompiledDittoEngine  # noqa: E402
 from repro_torch.nn import core as ncore  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
+from repro_torch.tree import map_tree  # noqa: E402
 
 CFG_KW = dict(d_model=64, n_layers=2, n_heads=2, patch=2, in_channels=4, input_size=8,
               n_classes=4)
@@ -271,7 +272,7 @@ def test_dit_apply_matches_reference_fp32():
                     _t(lat), _t(t), _t(labels)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
     # a Param-tagged tree applies the same
-    tagged = ncore.map_tree(lambda a: ncore.Param(a, ()), bridge.params_from_numpy(tree, device="cpu"))
+    tagged = map_tree(lambda a: ncore.Param(a, ()), bridge.params_from_numpy(tree, device="cpu"))
     _eq(dit.apply(tagged, dit.DiTCfg(**CFG_KW), _t(lat), _t(t), _t(labels)), got)
 
 
@@ -335,7 +336,7 @@ def test_init_shapes_match_reference():
     cfg = dit.DiTCfg(**CFG_KW)
     got = dit.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     want = _ref_tree(0, rdit.DiTCfg(**CFG_KW))
-    shapes = ncore.map_tree(lambda a: tuple(a.shape), got)
+    shapes = map_tree(lambda a: tuple(a.shape), got)
     assert shapes == jax.tree.map(lambda a: tuple(a.shape), want)
     assert not got["blocks"]["mod"]["w"].any()  # adaLN-Zero
     w = got["blocks"]["attn"]["wq"]["w"]
