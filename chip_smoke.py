@@ -85,7 +85,29 @@ Phases (any failure raises and the script exits non-zero):
              from a replayed graph of the phase. It prints one
              ``scheduler: {...}`` line (dispatches, triggers, pad rows,
              deadline misses, latencies, captures, the warmup wall).
-6. train   — DiT-XL/2 training at full width and depth from
+6. mesh    — ``ServeScheduler`` on a ``ServeMesh`` at DiT-XL/2, 10 DDIM
+             steps, ``max_batch=4``, over two distinct cards where there are
+             two, else the one card named twice (it prints which), the
+             kernel counts zeroed first. (a) async, ``steal=True``: 6 full
+             buckets in one group go to one owner shard; the other shard
+             steals (``steals >= 1``, ``stolen_rows`` == its rows). (b) sync,
+             ``steal=False``, three groups with ``max_retries=1,
+             fallbacks=({"low_bits": 4},)`` and one ``session.serve`` fault
+             on the second dispatch: exactly that ticket walks to
+             ``low_bits=4``, the scheduler lives. (c) ``dp=2`` under Defo with
+             statistics: the split dispatch's frozen modes, sample and
+             records (by (layer, step); ``mod``'s tile histograms are each
+             device's own) equal the unsharded dispatch's. (d)
+             ``warmup(buckets=[1, 2, 4])`` captures on both shards
+             (``primed`` = the sibling's 3), then no shard captures. Every
+             ticket equals solo ``ServeSession`` serving ``torch.equal``;
+             ``int8_matmul``, ``diff_encode`` and both ``ditto_diff_matmul``
+             branches must launch from the shards' replayed graphs, and
+             both stealing shards must replay diff steps. It prints the
+             2-shard and 1-shard walls of the same warm stream and the
+             median dispatch wall of each (one host drives both shards),
+             per-shard dispatches and rows, and peak memory.
+7. train   — DiT-XL/2 training at full width and depth from
              ``configs/dit_xl2.py`` (bfloat16 params, float32 compute):
              ``init_state``, ``make_train_step`` with ``make_optimizer(base_lr
              =3e-4)`` (TrainDriver's warmup for a 20-step run), 20 steps at
@@ -103,7 +125,7 @@ Phases (any failure raises and the script exits non-zero):
              full width and depth 2 through ``TrainDriver``: 8 steps
              straight against 4, a restart from the checkpoint and 4 more,
              the last losses within 1e-5 (and whether they are bit-identical).
-7. times   — each kernel on the inputs the slice gave it (the last call at
+8. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -112,7 +134,8 @@ Phases (any failure raises and the script exits non-zero):
              as a (K, N) contiguous copy and as the transposed view of the
              K-major weight; ``library_ms`` is the faster).
 
-The last lines are the ``scheduler: {...}`` and ``training: {...}`` lines,
+The last lines are the ``scheduler: {...}``, ``mesh: {...}`` and
+``training: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -150,8 +173,8 @@ from repro_torch.launch.train import TrainDriver  # noqa: E402
 from repro_torch.models import dit_int8  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.serve import (CompiledRunnerCache, DispatchFailed, Fault,  # noqa: E402
-                               FaultInjector, InjectedFault, SchedulerDied, ServeScheduler,
-                               ServeSession, bucket_for, chaos_schedule, inject)
+                               FaultInjector, InjectedFault, SchedulerDied, ServeMesh,
+                               ServeScheduler, ServeSession, bucket_for, chaos_schedule, inject)
 from repro_torch.serve import cache as serve_cache  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
@@ -1081,6 +1104,218 @@ def phase_scheduler(params, sched) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- mesh
+MESH_STEPS = 10
+MESH_BUCKETS = 6  # async stealing: 6 full buckets of 4 rows, one group
+MESH_KERNELS = ("int8_matmul", "diff_encode", "ditto_diff_matmul", DIFF4)
+
+
+def mesh_devices() -> tuple:
+    """Two distinct cards where there are two, else the one card named twice
+    (the port's counterpart of forced host devices), and what was chosen."""
+    if torch.cuda.device_count() >= 2:
+        return (torch.device("cuda", 0), torch.device("cuda", 1)), "two cards"
+    return (torch.device("cuda", 0),) * 2, "one card named twice"
+
+
+def phase_mesh(params, sched) -> dict:
+    """ServeScheduler on a ServeMesh at DiT-XL/2, 10 DDIM steps, max_batch=4:
+    async stealing, a fault on one shard, a dp=2 split dispatch under Defo
+    and warmup on every shard, every ticket held bit for bit to solo serving
+    (``torch.equal``), the counts zeroed first and read after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    zero_counts()
+    devs, layout = mesh_devices()
+    say(f"mesh: devices {[str(d) for d in devs]} ({layout})")
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+
+    def request(n):
+        return (torch.randn((n, CFG.input_size, CFG.input_size, CFG.in_channels), generator=g,
+                            device=DEVICE),
+                torch.randint(0, CFG.n_classes, (n,), generator=g, device=DEVICE))
+
+    def equal(name, got, want):
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"mesh {name}: rows not finite or misshapen")
+        if not torch.equal(got.to(want.device), want):
+            d = (got.to(want.device) - want).abs().max().item()
+            raise AssertionError(f"mesh {name}: rows differ from solo serving (max {d})")
+
+    base = DittoPlan(steps=MESH_STEPS, policy="diff", max_batch=4, collect_stats=False)
+    solo = ServeSession(params, CFG, sched, base)
+    schedulers, out = [], {}
+
+    def sync_all():
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+
+    # ---- (a) async stealing: a skewed stream, one group, one owner shard
+    reqs = [request(4) for _ in range(MESH_BUCKETS)]
+    want = [solo.serve(x, lab).sample for x, lab in reqs]
+
+    def run_stream(s, walls=None):
+        """The stream through ``s``: its rows and wall; ``walls`` collects
+        each dispatch's serve wall (the session's own clock)."""
+        if walls is not None:
+            for sess in s._sessions:
+                inner = sess.serve
+
+                def timed(x, labels=None, *, plan=None, inner=inner):
+                    res = inner(x, labels, plan=plan)
+                    walls.append(res.wall_s)
+                    return res
+
+                sess.serve = timed
+        sync_all()
+        t0 = time.perf_counter()
+        tickets = [s.submit(x, lab) for x, lab in reqs]
+        s.flush()
+        rows = [t.result(timeout=WAIT_S) for t in tickets]
+        sync_all()
+        return rows, time.perf_counter() - t0
+
+    mesh = ServeMesh(2, dp=1, steal=True, devices=devs)
+    s = ServeScheduler(params, CFG, sched, base, mesh=mesh, async_mode=True,
+                       dispatch_interval_ms=INTERVAL_MS)
+    schedulers.append(s)
+    with s:
+        rows, wall_cold = run_stream(s)
+        st = s.stats()
+        owner = next(iter(s._groups.values())).shard
+        walls_2: list = []
+        rows2, wall_2 = run_stream(s, walls_2)  # warm: every key captured on both shards
+        st2 = s.stats()
+    for i, (r, r2) in enumerate(zip(rows, rows2)):
+        equal(f"stealing ticket {i}", r, want[i])
+        equal(f"stealing ticket {i}, warm", r2, want[i])
+    m = st["mesh"]
+    non_owner = sum(r for k, r in enumerate(m["shard_rows"]) if k != owner)
+    if m["steals"] < 1 or m["stolen_rows"] != non_owner or st["failed"]:
+        raise AssertionError(f"mesh stealing: {m}, owner {owner}, failed {st['failed']}")
+    one = ServeScheduler(params, CFG, sched, base, cache=solo.cache, async_mode=True,
+                         dispatch_interval_ms=INTERVAL_MS)
+    walls_1: list = []
+    with one:
+        rows1, wall_1 = run_stream(one, walls_1)
+    for i, r in enumerate(rows1):
+        equal(f"one shard ticket {i}", r, want[i])
+    m2 = st2["mesh"]
+    out["stealing"] = dict(cold=m, warm=dict(
+        shard_dispatches=[a - b for a, b in zip(m2["shard_dispatches"], m["shard_dispatches"])],
+        shard_rows=[a - b for a, b in zip(m2["shard_rows"], m["shard_rows"])],
+        steals=m2["steals"] - m["steals"]), wall_cold_s=wall_cold, wall_2_shards_s=wall_2,
+        wall_1_shard_s=wall_1, dispatch_s_2_shards=statistics.median(walls_2),
+        dispatch_s_1_shard=statistics.median(walls_1),
+        # dispatch walls over the stream's: how many dispatches ran at once
+        overlap_2_shards=sum(walls_2) / wall_2, overlap_1_shard=sum(walls_1) / wall_1)
+    say(f"mesh stealing: {MESH_BUCKETS} buckets of 4 rows, one group owned by shard {owner}: "
+        f"{m['steals']} steal(s), {m['stolen_rows']} stolen row(s) == the other shard's; "
+        f"every ticket == solo; warm wall {wall_2:.3f} s on 2 shards, {wall_1:.3f} s on 1, "
+        f"a dispatch {statistics.median(walls_2):.3f} / {statistics.median(walls_1):.3f} s "
+        f"(median) ({layout})")
+
+    # ---- (b) a fault on one shard walks that dispatch's ladder
+    def mk(steps):
+        return base.replace(steps=steps, max_retries=1, fallbacks=(dict(low_bits=4),))
+
+    plans = [mk(MESH_STEPS), mk(MESH_STEPS + 1), mk(MESH_STEPS + 2)]  # three groups
+    fx = [request(4) for _ in plans]
+    s = ServeScheduler(params, CFG, sched, base, mesh=ServeMesh(2, steal=False, devices=devs))
+    schedulers.append(s)
+    with inject(FaultInjector([Fault("session.serve", 1, "error")])) as inj:
+        tickets = [s.submit(x, lab, plan=p) for (x, lab), p in zip(fx, plans)]
+        s.flush()
+    st = s.stats()
+    walked = [i for i, t in enumerate(tickets) if t.served_with.low_bits == 4]
+    if (len(inj.fired) != 1 or walked != [1] or st["died"] or st["retries"] != 1
+            or st["failed"]):
+        raise AssertionError(f"mesh fault: fired {inj.fired}, walked {walked}, {st}")
+    for i, ((x, lab), p, t) in enumerate(zip(fx, plans, tickets)):
+        equal(f"fault ticket {i}", t.result(), solo.serve(x, lab, plan=p).sample)
+    out["fault"] = dict(walked=walked, shard_dispatches=st["mesh"]["shard_dispatches"],
+                        retries=st["retries"], fallback_dispatches=st["fallback_dispatches"],
+                        died=st["died"])
+    say(f"mesh fault: one session.serve fault on the second dispatch; ticket {walked} walked "
+        f"to low_bits=4, every ticket == solo, died {st['died']}")
+
+    # ---- (c) a dp=2 split dispatch under Defo, statistics on
+    defo = base.replace(policy="defo", collect_stats=True)
+    x, lab = request(4)
+    ref = solo.serve(x, lab, plan=defo)
+    s = ServeScheduler(params, CFG, sched, defo, mesh=ServeMesh(2, dp=2, devices=devs),
+                       retain=True)
+    schedulers.append(s)
+    t = s.submit(x, lab)
+    equal("dp=2 defo", t.result(), ref.sample)
+    got_c, want_c = t.results[0].chunks[0], ref.chunks[0]
+    modes = want_c.engine.compiled_modes()
+    if got_c.engine.compiled_modes() != modes:
+        raise AssertionError("mesh dp=2: the frozen modes differ from the unsharded dispatch's")
+    recs = {(r["layer"], r["step"]): r for r in got_c.records}
+    for r in want_c.records:
+        key = (r["layer"], r["step"])
+        differ = [f for f, v in r.items() if recs[key].get(f) != v
+                  and not (f in ("tile_hist", "tile_fracs", "bops_tile")
+                           and r["layer"].endswith(".mod"))]
+        if differ or recs[key].keys() != r.keys():
+            raise AssertionError(f"mesh dp=2: record {key} differs in {differ}")
+    n_act = sum(v == "act" for v in modes.values())
+    out["dp2"] = dict(act_layers=n_act, diff_layers=len(modes) - n_act,
+                      records=len(want_c.records))
+    say(f"mesh dp=2: defo modes ({n_act} act, {len(modes) - n_act} diff) == unsharded, the "
+        f"sample == unsharded bit for bit, {len(want_c.records)} records equal by (layer, "
+        f"step) (mod's tile histograms are each device's own)")
+
+    # ---- (d) warmup captures on every shard; serving then captures nothing
+    s = ServeScheduler(params, CFG, sched, base, mesh=ServeMesh(2, devices=devs))
+    schedulers.append(s)
+    w = s.warmup(buckets=[1, 2, 4])
+    other = base.replace(steps=MESH_STEPS + 1)  # a second group: the other shard
+    wreqs = [(request(4), None), (request(1), None), (request(2), other), (request(4), other)]
+    tickets = [s.submit(x, lab, plan=p) for (x, lab), p in wreqs]
+    s.flush()
+    for i, (((x, lab), p), t) in enumerate(zip(wreqs, tickets)):
+        equal(f"after warmup {i}", t.result(), solo.serve(x, lab, plan=p).sample)
+    st = s.stats()
+    if (w["captures"], w["primed"]) != (3, 3) or st["mesh"]["captures_after_warmup"] != [0, 0] \
+            or 0 in st["mesh"]["shard_dispatches"]:
+        raise AssertionError(f"mesh warmup: {w}, then {st['mesh']}")
+    out["warmup"] = dict(w, shard_dispatches=st["mesh"]["shard_dispatches"],
+                         captures_after_warmup=st["mesh"]["captures_after_warmup"])
+    say(f"mesh warmup: {json.dumps(out['warmup'])}")
+
+    # ---- the path's kernels ran from the mesh shards' own graphs (the
+    # counts, zeroed first, also hold the solo serves' captures)
+    ticks = launch_counts()
+    replayed: dict = {}
+    per_shard = []
+    for sch in schedulers:
+        for sess in sch._sessions:
+            mine: dict = {}
+            for c in sess.caches:
+                for k, v in c.replayed_launches().items():
+                    replayed[k] = replayed.get(k, 0) + v
+                    mine[k] = mine.get(k, 0) + v
+            per_shard.append(mine)
+    idle = [k for k in MESH_KERNELS if not replayed.get(k)]
+    if idle:
+        raise AssertionError(f"mesh: no shard graph launched {idle}")
+    if "diff_encode" in MESH_KERNELS and any(not sh.get("diff_encode") for sh in per_shard[:2]):
+        raise AssertionError(f"mesh: a shard of the stealing mesh replayed no diff step: "
+                             f"{per_shard[:2]}")
+    out["launches"] = dict(captured=ticks, replayed_by_shards=replayed)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["devices"] = layout
+    del schedulers, solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- training
 TRAIN_ARCH = configs.get("dit-xl2")  # bf16 params, as the config says
 TRAIN_BATCH = 32
@@ -1385,6 +1620,7 @@ def main() -> int:
         cap.close()
     serving = phase_serve(params, x_T, labels, sched, diff_run)
     scheduling = phase_scheduler(params, sched)
+    meshing = phase_mesh(params, sched)
     del params, x_T, labels, diff_run  # the training phase needs the card's memory
     training = phase_train()
     rows, bounds = phase_times(cap)
@@ -1410,6 +1646,7 @@ def main() -> int:
     say(f"serving: {json.dumps(serving)}")
     say(f"total {time.perf_counter() - t0:.1f} s")
     say("scheduler: " + json.dumps(scheduling))
+    say("mesh: " + json.dumps(meshing))
     say("training: " + json.dumps(training))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -25,6 +25,8 @@ counters; the request log is checkpointed atomically and resumed.
     python examples/serve_diffusion_torch.py --int4-from 8   # int8 early, int4 + fused late
     python examples/serve_diffusion_torch.py --deadline-ms 2000 --warmup  # async scheduler
     python examples/serve_diffusion_torch.py --chaos 7       # seeded faults, ladder + watchdog
+    python examples/serve_diffusion_torch.py --mesh 2        # a 2-shard mesh over 2 cards
+    python examples/serve_diffusion_torch.py --device cpu --small --mesh 4   # 4 logical CPU devices
     python examples/serve_diffusion_torch.py --train-steps 200    # train, then serve
     python examples/serve_diffusion_torch.py --device cpu --small --steps 4   # no card
 
@@ -44,6 +46,13 @@ stack armed: a retry ladder (fused -> two-pass -> ``low_bits=8``) whose
 budget of 3 retries outlasts the 3 one-shot faults, and the re-anchor
 watchdog. Each request's sample equals the same request served alone, bit
 for bit.
+
+``--mesh N`` (also through the async scheduler) puts it on a
+``repro_torch.serve.ServeMesh`` of N one-device shards: the first N cards
+(it raises when fewer are visible), or, with ``--device cpu``, N logical
+devices of the CPU. Each shard has its own dispatch thread and runner
+caches; new request groups go to the least loaded shard, and an idle shard
+steals due buckets from a busy one.
 """
 import argparse
 import contextlib
@@ -66,8 +75,8 @@ from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.tree import map_tree  # noqa: E402
 from repro_torch.serve import (DispatchFailed, DittoPlan, InjectedFault,  # noqa: E402
-                               NumericalFault, PlanSchedule, SchedulerDied, ServeScheduler,
-                               ServeSession, chaos_schedule, inject)
+                               NumericalFault, PlanSchedule, SchedulerDied, ServeMesh,
+                               ServeScheduler, ServeSession, chaos_schedule, inject)
 from repro_torch.sim import harness  # noqa: E402
 
 # a 2-block, 64-wide DiT with 2 heads and 8 classes (the CPU's model)
@@ -146,11 +155,17 @@ def serve_async(args, cfg, params, device, plan, done: dict, queue: list) -> dic
                                   sites=("session.serve", "denoise.step"), max_at=6)
         print(f"[serve] chaos seed {args.chaos}: "
               + ", ".join(f"{f.kind}@{f.site}[{f.at}]" for f in injector.faults))
+    mesh = None
+    if args.mesh:
+        mesh = ServeMesh(args.mesh, devices=(device,) * args.mesh if device.type == "cpu" else ())
+        print(f"[serve] mesh: {mesh.n_shards} shard(s) over {mesh.devices}, dp={mesh.dp}, "
+              f"steal={'on' if mesh.steal else 'off'}")
     s = ServeScheduler(params, cfg, diffusion.cosine_schedule(1000), plan, device=device,
-                       async_mode=True, dispatch_interval_ms=25.0)
+                       mesh=mesh, async_mode=True, dispatch_interval_ms=25.0)
     if args.warmup:
         w = s.warmup()
-        print(f"[serve] warmup: {w['captures']} graph(s) captured in {w['wall_s']:.2f}s")
+        print(f"[serve] warmup: {w['captures']} graph(s) captured ({w['primed']} on sibling "
+              f"shards) in {w['wall_s']:.2f}s")
     t0 = time.monotonic()
     tickets = []
     with inject(injector) if injector is not None else contextlib.nullcontext():
@@ -185,6 +200,10 @@ def serve_async(args, cfg, params, device, plan, done: dict, queue: list) -> dic
     print(f"[serve] runner cache: {st['runners']} runner(s), {st['captures']} capture(s), "
           f"{st['replays']} replay(s)"
           + (f", {st['captures_after_warmup']} after warmup" if args.warmup else ""))
+    if mesh is not None:
+        m = st["mesh"]
+        print(f"[serve] mesh: shard dispatches {m['shard_dispatches']}, rows "
+              f"{m['shard_rows']}, {m['steals']} steal(s) ({m['stolen_rows']} row(s))")
     if injector is not None:
         print(f"[serve] chaos: {len(injector.fired)}/{len(injector.faults)} fault(s) fired, "
               f"{st['retries']} retry(ies), {st['fallback_dispatches']} fallback "
@@ -221,6 +240,9 @@ def main(argv=None):
                     help="serve under a seeded fault schedule over session.serve and "
                          "denoise.step (implies the async scheduler) with the retry ladder "
                          "and the re-anchor watchdog armed")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="serve on a ServeMesh of N one-device shards (implies the async "
+                         "scheduler): N cards, or N logical devices with --device cpu")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' to run without")
     ap.add_argument("--small", action="store_true",
                     help="a 2-block, 64-wide DiT instead of DiT-XL/2 (for the CPU)")
@@ -229,6 +251,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.int4_from is not None and not 0 < args.int4_from < args.steps:
         ap.error(f"--int4-from must be inside (0, {args.steps})")
+    if args.mesh is not None and args.mesh < 1:
+        ap.error("--mesh needs at least 1 device")
 
     device = resolve_device(args.device)
     arch = ARCH_SMALL if args.small else configs.get("dit-xl2")
@@ -242,7 +266,8 @@ def main(argv=None):
             done = {int(k): v for k, v in json.load(f).items()}
         print(f"[serve] resuming: {len(done)} requests already served")
     queue = [(i, i % cfg.n_classes) for i in range(args.requests) if i not in done]
-    if args.deadline_ms is not None or args.warmup or args.chaos is not None:
+    if (args.deadline_ms is not None or args.warmup or args.chaos is not None
+            or args.mesh is not None):
         return serve_async(args, cfg, params, device, make_plan(args), done, queue)
 
     sess = ServeSession(params, cfg, diffusion.cosine_schedule(1000), make_plan(args),

@@ -29,24 +29,30 @@ is one batched launch, bit-identical to the per-element loop. Token and
 feature dims are zero-padded to the 128-tile grid inside the ops wrappers,
 so the pass is bit-identical to the eager engine in the int32 domain.
 
-With ``collect_stats`` the step also reduces zero/low/full class fractions
+With ``collect_stats`` the step also reduces zero/low/full class counts
 on the card and returns them as (3,) tensors in an aux dict; the engine
-turns them into cost-model records (``record_compiled_step``).
+turns them into the eager pass's float32 fractions and cost-model records
+(``record_compiled_step``).
 """
 from __future__ import annotations
 
 import torch
 
 from ...kernels import ops
+from ...kernels.common import LOW_BIT_MAX
 from . import classify, quant
 from .engine import DittoEngine
 from .plan import DittoPlan
 
 
-def _class_fractions(d: torch.Tensor) -> torch.Tensor:
-    """(zero, low, full) fractions of an int-domain Δ tensor, as (3,) f32."""
-    c = classify.element_classes(d)
-    return torch.stack([c["zero"], c["low"], c["full"]])
+def _class_counts(d: torch.Tensor) -> torch.Tensor:
+    """(zero, low, full) element counts of an int-domain tensor, (3,) int64.
+    Counts, not fractions: the row groups of a split dispatch add up to the
+    whole batch's exactly; the engine forms the fractions on the host
+    (``engine.class_fractions``), as ``classify`` does."""
+    a = d.to(torch.int32).abs()
+    return torch.stack([(a == 0).sum(), ((a > 0) & (a <= LOW_BIT_MAX)).sum(),
+                        (a > LOW_BIT_MAX).sum()])
 
 
 def _tile_hist(classes: torch.Tensor) -> torch.Tensor:
@@ -54,22 +60,6 @@ def _tile_hist(classes: torch.Tensor) -> torch.Tensor:
     tiles the kernel actually skipped / would narrow / ran at int8. (Not
     ``torch.bincount``: on CUDA it reads the maximum back to the host.)"""
     return torch.stack([(classes == c).sum() for c in range(3)])
-
-
-def _act_fractions(q: torch.Tensor) -> torch.Tensor:
-    """cls_act triple of the eager engine: (zero, 0, nonzero)."""
-    c = classify.element_classes(q)
-    return torch.stack([c["zero"], torch.zeros_like(c["zero"]), c["low"] + c["full"]])
-
-
-def _spatial_fractions(q2: torch.Tensor) -> torch.Tensor:
-    """cls_spatial triple of the eager oracle: row-delta fractions with the
-    full-precision first row folded in at weight 1/t (in float32, as the
-    reference's compiled step computes it)."""
-    t = q2.shape[0]
-    z, l, f = _class_fractions(classify.spatial_diff(q2, axis=0)[1:])
-    w0 = 1.0 / t
-    return torch.stack([z * (1 - w0), l * (1 - w0), f * (1 - w0) + w0])
 
 
 def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
@@ -90,12 +80,12 @@ def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
         y_i32 = ops.int8_act_matmul(q_t, p["w_qk"], plan=plan, w_transposed=True)
     if plan.collect_stats:
         if mode == "spatial":
-            aux["cls_diff"] = _class_fractions(classify.spatial_diff(q_t, axis=0)[1:])
+            aux["cls_diff"] = _class_counts(classify.spatial_diff(q_t, axis=0)[1:])
         else:
-            aux["cls_diff"] = _class_fractions(q_t.to(torch.int16) - st["x_prev"].to(torch.int16))
+            aux["cls_diff"] = _class_counts(q_t.to(torch.int16) - st["x_prev"].to(torch.int16))
         if q_t.shape[0] > 1:
-            aux["cls_spatial"] = _spatial_fractions(q_t)
-        aux["cls_act"] = _act_fractions(q_t)
+            aux["cls_spatial"] = _class_counts(classify.spatial_diff(q_t, axis=0)[1:])
+        aux["cls_act"] = _class_counts(q_t)
 
     new_st = dict(x_prev=q_t, y_prev=y_i32)
     y = y_i32.to(torch.float32) * p["x_scale"] * p["w_scale"][None, :]
@@ -129,8 +119,8 @@ def attention_apply(p: dict, mode: str, a: torch.Tensor, b: torch.Tensor, st: di
     if plan.collect_stats:
         da = qa.to(torch.int16) - st["a_prev"].to(torch.int16)
         db = qb.to(torch.int16) - st["b_prev"].to(torch.int16)
-        aux["cls_diff"] = _class_fractions(torch.cat([da.reshape(-1), db.reshape(-1)]))
-        aux["cls_act"] = _act_fractions(torch.cat([qa.reshape(-1), qb.reshape(-1)]))
+        aux["cls_diff"] = _class_counts(torch.cat([da.reshape(-1), db.reshape(-1)]))
+        aux["cls_act"] = _class_counts(torch.cat([qa.reshape(-1), qb.reshape(-1)]))
 
     new_st = dict(a_prev=qa, b_prev=qb, y_prev=y_i32)
     y = y_i32.to(torch.float32) * p["a_scale"] * p["b_scale"]

@@ -17,15 +17,27 @@ of its key, one captured CUDA graph on the card; a ``PlanSchedule`` swaps
 runners at segment boundaries and carries the temporal state across; the
 watchdog (``plan.watchdog``) re-anchors a step that saturates or goes
 non-finite.
+
+A split dispatch (``make_denoise_fn(mesh=...)``, the port's counterpart of
+the reference's batch-axis ``sharding_constraint``) runs the eager
+calibration steps over the whole batch on the first device, so Defo's
+decision is the unsharded one, and then the compiled steps by row groups,
+one per device (:class:`RowGroup`), each with its own runner cache and
+arena; the records of a step are merged from the groups' class counts.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
+from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...kernels.common import DEFAULT_LOW_BITS, resolve_device
+from ...distributed.sharding import batch_sharding
+from ...kernels.common import DEFAULT_LOW_BITS, LOW_BIT_MAX, resolve_device
 from ...nn import core as nncore
 from ...nn import dit as dit_mod
 from . import compiled as compiled_mod
@@ -34,6 +46,7 @@ from .compiled import CompiledDittoEngine
 from .engine import DittoEngine
 from .plan import (EAGER_PLAN, DittoPlan, PlanSchedule, check_device_block,
                    segment_resolved)
+from .quant import QTensor
 
 
 def _dit_forward(params, cfg: dit_mod.DiTCfg, linear, attention, latents, t, labels):
@@ -195,17 +208,184 @@ class CompiledDittoDiT:
         else:
             self._step = make_step_fn(cfg, self.ceng.modes, self.plan)
 
-    def __call__(self, latents, t, labels=None):
+    def run(self, latents, t, labels=None) -> tuple[torch.Tensor, dict]:
+        """One step: ``(eps, aux)``, the state carried, nothing recorded."""
         out, self.state, aux = self._step(self.ceng.params, self.params, self.state,
                                           latents, t, labels)
+        return out, aux
+
+    def __call__(self, latents, t, labels=None):
+        out, aux = self.run(latents, t, labels)
         if self.plan.collect_stats:
             self.engine.record_compiled_step(aux)
         return out
 
 
+class RowGroup(NamedTuple):
+    """One device of a split dispatch: the device, the params tree on it and
+    its runner cache (``None``: uncached)."""
+    device: torch.device
+    params: Any
+    cache: Any = None
+
+
+def _row_view(engine: DittoEngine, lo: int, hi: int, batch: int, device,
+              move_weights: bool) -> DittoEngine:
+    """A calibrated engine holding rows ``[lo, hi)`` of ``engine``'s batch on
+    ``device``: each per-row tensor (scales, temporal state) is sliced in
+    proportion to the batch along dim 0 and moved; modes and step count are
+    the engine's. ``move_weights`` moves the int8 weights too (an uncached
+    group builds its K-major copies from them)."""
+    def rows(a):
+        if a is None:
+            return None
+        per = a.shape[0] // batch
+        return a[lo * per:hi * per].to(device)
+
+    def on(a):
+        return None if a is None or not move_weights else a.to(device)
+
+    view = copy.copy(engine)
+    view.device = torch.device(device)
+    view.records, view.watchdog_events = [], []
+    view.layers = {
+        name: dataclasses.replace(
+            st, x_scale=rows(st.x_scale), x_prev=rows(st.x_prev), y_prev=rows(st.y_prev),
+            a_prev=rows(st.a_prev), b_prev=rows(st.b_prev), a_scale=rows(st.a_scale),
+            b_scale=rows(st.b_scale),
+            w=st.w if st.w is None or not move_weights else QTensor(on(st.w.q), on(st.w.scale)),
+            bias=st.bias if not move_weights else on(st.bias))
+        for name, st in engine.layers.items()}
+    return view
+
+
+def _host_counts(parts_aux: list[dict]) -> list[dict]:
+    """Each group's aux as host ``{layer: {key: [3 counts]}}``, one copy a group."""
+    out = []
+    for aux in parts_aux:
+        keys = [(name, key) for name, a in aux.items() for key in a]
+        if not keys:
+            out.append({})
+            continue
+        flat = torch.cat([aux[n][k].to(torch.float64).reshape(3) for n, k in keys]).cpu().tolist()
+        host: dict = {}
+        for i, (n, k) in enumerate(keys):
+            host.setdefault(n, {})[k] = flat[3 * i:3 * i + 3]
+        out.append(host)
+    return out
+
+
+def _boundary_counts(states: list[dict], names: list[str]) -> dict[str, list]:
+    """(zero, low, full) counts of the row deltas that cross the groups'
+    boundaries, per linear layer: row 0 of group g + 1 against the last row
+    of group g of the step's quantized input (the state's ``x_prev``), read
+    to the host in one copy a group."""
+    widths = [states[0][n]["x_prev"].shape[-1] for n in names]
+    total = sum(widths)
+    edges = [torch.cat([st[n]["x_prev"][0] for n in names]
+                       + [st[n]["x_prev"][-1] for n in names]).cpu().numpy().astype(np.int16)
+             for st in states]
+    out = {n: [0, 0, 0] for n in names}
+    for g in range(len(states) - 1):
+        off = 0
+        for n, k in zip(names, widths):
+            a = np.abs(edges[g + 1][off:off + k] - edges[g][total + off:total + off + k])
+            c = out[n]
+            c[0] += int((a == 0).sum())
+            c[1] += int(((a > 0) & (a <= LOW_BIT_MAX)).sum())
+            c[2] += int((a > LOW_BIT_MAX).sum())
+            off += k
+    return out
+
+
+def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, str]) -> dict:
+    """The aux of one compiled step over the whole batch from its row
+    groups' (``parts_aux`` and the groups' states after the step, in row
+    order): element counts add up, and the row deltas of the spatial
+    statistics (``cls_spatial``, and ``cls_diff`` of spatial-mode layers)
+    gain the deltas across each group boundary, so every count equals the
+    unsplit step's. ``tile_hist`` sums the groups' measured tiles: where a
+    layer's rows on one device are not whole 128-row tiles (the conditioning
+    ``mod`` layer, M = the batch), the devices classified tiles of their own
+    rows. Values are (3,) float64 count tensors on the host."""
+    host = _host_counts(parts_aux)
+    names: list[str] = []
+    for h in host:
+        names += [n for n in h if n not in names]
+    if not names:
+        return {}
+    linear = [n for n in names if "x_prev" in states[0][n]]
+    boundary = _boundary_counts(states, linear)
+    merged: dict = {}
+    for n in names:
+        # a one-row group has no row delta, hence no cls_spatial of its own
+        keys = dict.fromkeys([k for h in host for k in h.get(n, {})]
+                             + (["cls_spatial"] if n in boundary else []))
+        m = merged[n] = {}
+        for k in keys:
+            c = [sum(h.get(n, {}).get(k, (0, 0, 0))[i] for h in host) for i in range(3)]
+            if k == "cls_spatial" or (k == "cls_diff" and modes[n] == "spatial"):
+                c = [a + b for a, b in zip(c, boundary[n])]
+            m[k] = torch.tensor(c, dtype=torch.float64)
+    return merged
+
+
+class SplitDittoDiT:
+    """The compiled pass of a split dispatch: one :class:`CompiledDittoDiT`
+    a :class:`RowGroup`, each on its device's rows of a ``batch``-row batch
+    (``batch_sharding``), seeded from its rows of the calibrated engine's
+    state, through its own cache at ``bucket`` = its rows. Called like
+    :class:`CompiledDittoDiT`: it places each group's rows on its device
+    (``serve.mesh.place_dispatch``), records the merged counts of the step
+    on ``engine`` (:func:`merge_row_aux`) and returns the eps rows
+    concatenated on the engine's device. ``prev`` (the split runner of the
+    previous segment) hands its groups' row views on."""
+
+    def __init__(self, groups, cfg: dit_mod.DiTCfg, engine: DittoEngine, plan: DittoPlan,
+                 batch: int, *, prev: "SplitDittoDiT | None" = None):
+        self.engine = engine
+        self.plan = segment_resolved(plan)
+        ranges = batch_sharding(self.plan.mesh_sig(), batch)
+        if ranges[0] == (0, batch):
+            raise ValueError(f"a batch of {batch} rows does not split over {len(groups)} "
+                             f"devices")
+        self.devices = tuple(g.device for g in groups)
+        self.parts = [
+            CompiledDittoDiT(g.params, cfg,
+                             _row_view(engine, lo, hi, batch, g.device, g.cache is None)
+                             if prev is None else prev.parts[i].engine,
+                             self.plan, cache=g.cache, bucket=hi - lo)
+            for i, (g, (lo, hi)) in enumerate(zip(groups, ranges))]
+
+    @property
+    def state(self) -> list:
+        return [p.state for p in self.parts]
+
+    @state.setter
+    def state(self, states: list) -> None:
+        for p, st in zip(self.parts, states):
+            p.state = st
+
+    def __call__(self, latents, t, labels=None):
+        from ...serve.mesh import place_dispatch  # core.ditto does not import serve
+
+        axis = self.plan.mesh_axis
+        xs, ls = place_dispatch(latents, labels, self.devices, axis)
+        ts, _ = place_dispatch(t, None, self.devices, axis)
+        outs, auxes = [], []
+        for part, xg, tg, lg in zip(self.parts, xs, ts, ls):
+            out, aux = part.run(xg, tg, lg)
+            outs.append(out)
+            auxes.append(aux)
+        if self.plan.collect_stats:
+            self.engine.record_compiled_step(
+                merge_row_aux(auxes, self.state, self.parts[0].ceng.modes))
+        return torch.cat([o.to(self.engine.device) for o in outs])
+
+
 def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
                     plan: DittoPlan | PlanSchedule | None = None, *, runner_cache=None,
-                    bucket: int | None = None, device=None):
+                    bucket: int | None = None, device=None, mesh=None):
     """denoise_fn(x, t, labels) for ``core.diffusion`` samplers; calls
     engine.end_step() after each sampler step.
 
@@ -236,6 +416,14 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
     canonical plan (``fused=False``, default ``low_bits``), refreshing
     x_prev / y_prev. Events land on ``engine.watchdog_events``; output that
     is still non-finite raises ``serve.faults.NumericalFault``.
+
+    ``mesh`` (a tuple of :class:`RowGroup`, one per device of a shard, the
+    first on ``device``; the plan's ``mesh_devices`` of them) splits the
+    compiled steps (:class:`SplitDittoDiT`): every batch the denoiser sees
+    must divide into ``len(mesh)`` equal row groups (``serve_records`` runs
+    a batch that does not unsplit). The eager calibration steps run over
+    the whole batch on ``device``. The watchdog does not run on a split
+    dispatch (``ValueError``).
     """
     plan = EAGER_PLAN if plan is None else plan
     if not isinstance(plan, (DittoPlan, PlanSchedule)):
@@ -245,6 +433,16 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
     check_device_block(plan, dev)
     if engine.device != dev:
         raise ValueError(f"engine lives on {engine.device}, denoise_fn asked for {dev}")
+    groups = tuple(mesh) if mesh is not None and len(mesh) > 1 else None
+    if groups is not None:
+        if plan.mesh_sig() is None or plan.mesh_sig()[0] != len(groups):
+            raise ValueError(f"a split over {len(groups)} devices needs a plan with "
+                             f"mesh_devices={len(groups)}, got {plan.mesh_sig()}")
+        if torch.device(groups[0].device) != dev:
+            raise ValueError(f"the first row group lives on {groups[0].device}, the "
+                             f"engine on {dev}")
+        if plan.watchdog:
+            raise ValueError("plan.watchdog does not run on a split dispatch (mesh dp > 1)")
     schedule = plan.normalized() if isinstance(plan, PlanSchedule) else None
     watchdog = plan.watchdog
     reanchor_frac = plan.reanchor_full_frac
@@ -308,21 +506,25 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
                 box["reanchor_due"] = full / total
         return out
 
+    def compiled_runner(seg_plan, batch: int, prev=None):
+        if groups is None:
+            return CompiledDittoDiT(params, cfg, engine, seg_plan, cache=runner_cache,
+                                    bucket=bucket)
+        return SplitDittoDiT(groups, cfg, engine, seg_plan, batch, prev=prev)
+
     def fn(x, t, labels):
         if plan.compiled and engine.ready_for_compiled():
             # engine.step_idx is the current sampler step
             seg_plan = schedule.plan_for(engine.step_idx) if schedule is not None else plan
             sig = seg_plan.cache_sig()
             if box.get("built_for") is not engine.records:  # rebuilt per begin_sample
-                box["runner"] = CompiledDittoDiT(params, cfg, engine, seg_plan,
-                                                 cache=runner_cache, bucket=bucket)
+                box["runner"] = compiled_runner(seg_plan, x.shape[0])
                 box["built_for"] = engine.records
                 box["sig"] = sig
                 box.pop("reanchor_due", None)  # saturation never crosses samples
             elif box["sig"] != sig:  # segment boundary: swap the step, carry the state
                 prev = box["runner"]
-                box["runner"] = CompiledDittoDiT(params, cfg, engine, seg_plan,
-                                                 cache=runner_cache, bucket=bucket)
+                box["runner"] = compiled_runner(seg_plan, x.shape[0], prev)
                 box["runner"].state = prev.state
                 box["sig"] = sig
             if watchdog:

@@ -58,6 +58,38 @@ class _LayerState:
     b_scale: torch.Tensor | None = None
 
 
+def class_fractions(counts) -> torch.Tensor:
+    """Float32 fractions of (zero, low, full) class counts, (3,) or (R, 3):
+    each ``float32(count) / float32(n)`` as :mod:`classify` forms them (n =
+    the counts' sum, the elements classified; exact in float64)."""
+    c = torch.tensor(counts, dtype=torch.float64)
+    return c.to(torch.float32) / c.sum(-1, keepdim=True).to(torch.float32)
+
+
+def _compiled_classes(host: dict, t_of: dict) -> dict:
+    """``{layer: (cls_act, cls_diff, cls_spatial)}`` from one compiled step's
+    host counts, in the float32 arithmetic of the reference's compiled step
+    (all layers in a few tensor ops): cls_act is (zero, 0, low + full);
+    cls_spatial weights the row deltas by 1 - 1/t and folds the
+    full-precision first of the layer's ``t_of`` rows in at 1/t."""
+    rows = [(n, k) for n, a in host.items() for k in a if k != "tile_hist"]
+    frac = class_fractions([host[n][k] for n, k in rows])
+    sp = [i for i, (_, k) in enumerate(rows) if k == "cls_spatial"]
+    if sp:
+        w0 = [1.0 / t_of[rows[i][0]] for i in sp]
+        s = frac[sp] * torch.tensor([1 - w for w in w0], dtype=torch.float32)[:, None]
+        s[:, 2] = s[:, 2] + torch.tensor(w0, dtype=torch.float32)
+        frac[sp] = s
+    act = torch.stack([frac[:, 0], torch.zeros_like(frac[:, 0]), frac[:, 1] + frac[:, 2]], 1)
+    out: dict = {n: [None, None, None] for n in host}
+    for (n, k), f, a in zip(rows, frac.tolist(), act.tolist()):
+        if k == "cls_act":
+            out[n][0] = tuple(a)
+        else:
+            out[n][1 if k == "cls_diff" else 2] = tuple(f)
+    return out
+
+
 def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact batched a @ b^T over int operands: (B,M,D) x (B,N,D) -> (B,M,N)."""
     return exact_matmul(a, b.transpose(-1, -2))
@@ -322,11 +354,14 @@ class DittoEngine:
                              reanchor: bool = False) -> None:
         """Append records for one compiled step.
 
-        ``aux`` maps each layer to (3,) tensors reduced in the step:
-        'cls_act' always, 'cls_diff' / 'cls_spatial' where the layer has
-        the state to measure them, and 'tile_hist' — the measured
-        (n_zero, n_low, n_full) tile-class histogram from diff_encode — for
-        diff-mode layers. They come to the host in one copy. Layer
+        ``aux`` maps each layer to (3,) tensors of counts reduced in the
+        step (or merged from a split step's, ``dit_runner.merge_row_aux``):
+        the (zero, low, full) element counts 'cls_act' always, 'cls_diff' /
+        'cls_spatial' where the layer has the state to measure them, and
+        'tile_hist' — the measured (n_zero, n_low, n_full) tile-class
+        histogram from diff_encode — for diff-mode layers. They
+        come to the host in one copy, where the counts become the float32
+        fractions of the reference's step (:func:`_compiled_classes`). Layer
         dimensions are reused from that layer's calibration-step record.
         ``modes`` overrides the frozen modes the step ran under (the
         watchdog's all-act re-anchor step); ``reanchor`` marks its records.
@@ -347,6 +382,7 @@ class DittoEngine:
         host: dict[str, dict] = collections.defaultdict(dict)
         for i, (name, key) in enumerate(keys):
             host[name][key] = tuple(vals[3 * i:3 * i + 3])
+        classes = _compiled_classes(host, {name: base_by_layer[name]["t"] for name in host})
         for name, a in host.items():
             base = base_by_layer[name]
             meta = self.meta[name]
@@ -354,9 +390,9 @@ class DittoEngine:
                                    "kind": meta.kind, "macs": base["macs"], "compiled": True}
             if reanchor:
                 rec["reanchor"] = True
-            self._account_classes(rec, base["t"], base["k"], base["n"], a["cls_act"],
-                                  a.get("cls_diff"), meta, attention=base["attention"],
-                                  cls_spatial=a.get("cls_spatial"))
+            cls_act, cls_diff, cls_spatial = classes[name]
+            self._account_classes(rec, base["t"], base["k"], base["n"], cls_act, cls_diff, meta,
+                                  attention=base["attention"], cls_spatial=cls_spatial)
             if "tile_hist" in a:
                 hist = tuple(int(v) for v in a["tile_hist"])
                 rec["tile_hist"] = hist

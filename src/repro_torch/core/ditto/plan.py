@@ -5,6 +5,8 @@ frozen, hashable dataclass in four groups:
 
   kernel   : ``block``, ``low_bits``, ``fused`` — what the compiled step
              launches (validated once, at construction);
+  mesh     : ``mesh_devices``, ``mesh_axis`` — the data-parallel width a
+             dispatch's rows are split over (``serve/mesh.py``);
   sampling : ``steps``, ``sampler``, ``policy`` — the denoising loop and
              the engine's mode policy;
   serve    : ``compiled``, ``collect_stats``, ``max_batch``,
@@ -24,8 +26,7 @@ The reference's ``interpret`` has no counterpart: the device of the
 tensors decides between kernel and plain version. On the card every
 kernel tiles by 128, so :func:`check_device_block` rejects any other
 ``block`` there before a step runs; the plain versions on the CPU take any
-block. The mesh fields come with ``serve/mesh.py`` (ROADMAP.md, queue 1);
-of the deprecated per-knob keyword shims only the :data:`UNSET` sentinel
+block. Of the deprecated per-knob keyword shims only the :data:`UNSET` sentinel
 is here, which ``ServeScheduler.submit(deadline_ms=)`` needs
 (``plan_from_kwargs`` has no caller in the port).
 """
@@ -49,6 +50,16 @@ _POLICIES = ("act", "diff", "spatial", "defo", "defo+")
 #: :meth:`DittoPlan.cache_sig`. Loop-level fields (``steps``, ``sampler``,
 #: ``policy``, ``compiled``, ``max_batch``) stay constant across a schedule.
 SEGMENT_FIELDS = ("block", "collect_stats", "low_bits", "fused")
+
+#: Mesh fields: how a dispatch's batch rows are split over the devices of
+#: one shard (``(mesh_axis: mesh_devices)``). They are runner identity —
+#: :meth:`DittoPlan.cache_sig` ends with :meth:`DittoPlan.mesh_sig` — so a
+#: sharded and an unsharded runner never share a CUDA graph. They are
+#: neither segment-schedulable (a mid-loop change would move the carried
+#: state) nor fallback-overridable (a degraded rung stays on its shard).
+#: The steal and queue policy lives on ``serve.mesh.ServeMesh`` and stays
+#: out of the sig.
+MESH_SIG_FIELDS = ("mesh_devices", "mesh_axis")
 
 #: Plan fields a degradation-ladder fallback delta may override: the
 #: segment fields plus ``compiled``, so the last rung can drop to the eager
@@ -86,6 +97,9 @@ class DittoPlan:
     block: int = CARD_BLOCK
     low_bits: int = DEFAULT_LOW_BITS  # 4 = packed-int4 low-tile branch
     fused: bool = False  # single-pass fused diff-step kernel
+    # --- mesh config: data-parallel layout of one dispatch --------------------
+    mesh_devices: int | None = None  # devices a dispatch's rows split over; None = unsharded
+    mesh_axis: str = "data"  # mesh axis name the batch dim splits over
     # --- sampling config: the denoising loop --------------------------------
     steps: int = 20
     sampler: str = "ddim"
@@ -122,6 +136,15 @@ class DittoPlan:
             raise ValueError(f"sampler must be one of {_SAMPLERS}, got {self.sampler!r}")
         if self.policy not in _POLICIES:
             raise ValueError(f"policy must be one of {_POLICIES}, got {self.policy!r}")
+        if self.mesh_devices is not None and (
+                self.mesh_devices < 1 or self.mesh_devices & (self.mesh_devices - 1)):
+            # buckets are powers of two, so a power-of-two width divides every
+            # bucket at least as large (smaller ones are replicated)
+            raise ValueError(
+                f"mesh_devices must be a power of two >= 1 (or None for unsharded), "
+                f"got {self.mesh_devices}")
+        if not (isinstance(self.mesh_axis, str) and self.mesh_axis.isidentifier()):
+            raise ValueError(f"mesh_axis must be an identifier string, got {self.mesh_axis!r}")
 
     def _validate_recovery(self) -> None:
         if self.max_retries < 0:
@@ -161,10 +184,21 @@ class DittoPlan:
 
     def cache_sig(self) -> tuple:
         """Ordered identity of the compiled step: the plan fields that select
-        what it launches, in :data:`SEGMENT_FIELDS` order (``RunnerKey``'s
-        accessors rely on it). The loop, serve and recovery fields are
-        absent: plans differing only there run the same step."""
-        return (self.block, self.collect_stats, self.low_bits, self.fused)
+        what it launches, in :data:`SEGMENT_FIELDS` order, then
+        :meth:`mesh_sig` as the final slot (``RunnerKey``'s accessors rely on
+        the order; the reference's tuple has ``interpret`` in slot 1 besides,
+        which the port has not, so its mesh slot is 5 and the port's 4). The
+        loop, serve and recovery fields are absent: plans differing only
+        there run the same step."""
+        return (self.block, self.collect_stats, self.low_bits, self.fused, self.mesh_sig())
+
+    def mesh_sig(self) -> tuple | None:
+        """``(mesh_devices, mesh_axis)`` for a sharded plan, else ``None``:
+        the whole mesh identity a runner sees. Which devices a shard owns is
+        placement (``serve.mesh``), never part of a key."""
+        if self.mesh_devices is None:
+            return None
+        return (self.mesh_devices, self.mesh_axis)
 
     def fallback_plans(self) -> tuple:
         """The resolved degradation ladder: one :class:`DittoPlan` per
@@ -276,6 +310,19 @@ class PlanSchedule:
     @property
     def deadline_ms(self) -> float | None:
         return self.base.deadline_ms
+
+    # The mesh layout is loop-level: a segment may not move the carried state
+    # to another split, so every segment plan inherits the base's.
+    @property
+    def mesh_devices(self) -> int | None:
+        return self.base.mesh_devices
+
+    @property
+    def mesh_axis(self) -> str:
+        return self.base.mesh_axis
+
+    def mesh_sig(self) -> tuple | None:
+        return self.base.mesh_sig()
 
     # The recovery policy governs the whole dispatch, so it delegates too.
     @property

@@ -17,7 +17,15 @@
   ``csrc`` with ``nvcc`` into one shared library with a plain C interface
   and bind its entry points with ``ctypes``. The library is named after a
   hash of the sources and flags, so a stale build is never loaded; it is
-  built on first use, never at import (the CPU tests import every module).
+  built on first use, under a lock (two serving threads may reach their
+  first launch together), never at import (the CPU tests import every
+  module).
+* :func:`call` — every wrapper's launch: the C entry runs under
+  ``torch.cuda.device(<the operand's device>)`` on that device's current
+  stream. The entries ask ``cudaGetDevice`` for the SM count and the
+  shared-memory attribute, and a serving thread's current device need not
+  be the operand's (a mesh shard on ``cuda:1`` served from a fresh
+  thread).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -37,7 +46,7 @@ import torch.nn.functional as F
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
            "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
            "resolve_device",
-           "library_path", "build_library", "cuda_fn", "launch_check", "stream_ptr",
+           "library_path", "build_library", "cuda_fn", "call", "launch_check",
            "check_cuda_operand"]
 
 #: The int8-everywhere default; DittoPlan.low_bits and every kernel
@@ -143,26 +152,41 @@ def build_library(*, verbose: bool = False) -> tuple[Path, float]:
 
 _lib: ctypes.CDLL | None = None
 _fns: dict = {}
+_load_lock = threading.Lock()
 
 
 def cuda_fn(name: str, argtypes: list) -> ctypes._CFuncPtr:
     """The C entry ``name`` of the kernel library (built and loaded on first
-    use), with its ``argtypes`` declared and an ``int`` (cudaError_t)
-    result."""
+    use, under a lock), with its ``argtypes`` declared and an ``int``
+    (cudaError_t) result."""
     global _lib
     fn = _fns.get(name)
     if fn is None:
-        if _lib is None:
-            path, _ = build_library()
-            lib = ctypes.CDLL(str(path))
-            lib.ditto_error_string.argtypes = [ctypes.c_int]
-            lib.ditto_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        fn = getattr(_lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+        with _load_lock:
+            fn = _fns.get(name)
+            if fn is None:
+                if _lib is None:
+                    path, _ = build_library()
+                    lib = ctypes.CDLL(str(path))
+                    lib.ditto_error_string.argtypes = [ctypes.c_int]
+                    lib.ditto_error_string.restype = ctypes.c_char_p
+                    _lib = lib
+                fn = getattr(_lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
     return fn
+
+
+def call(label: str, name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Run the C entry ``name`` with ``args`` and, last, the current stream
+    of ``device`` (the operands' card), with ``device`` the thread's current
+    device while it runs; raise as :func:`launch_check` does (``label``
+    names the kernel)."""
+    fn = cuda_fn(name, argtypes)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    launch_check(label, rc)
 
 
 def launch_check(name: str, rc: int) -> None:
@@ -205,11 +229,6 @@ def encode_cluster(tiles: int, sms: int) -> int:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on the tensor's device, as a C pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:

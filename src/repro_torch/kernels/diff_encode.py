@@ -73,8 +73,7 @@ def launch(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0) -> torch.T
     batch, gm, gk = math.prod(lead), m // 128, k // 128
     out = torch.empty(lead + (gm, gk), dtype=torch.int32, device=x_t.device)
     cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
-    fn = common.cuda_fn("ditto_diff_encode", _ARGTYPES)
-    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), out.data_ptr(), batch, m, k, m * k, gm * gk,
-            common.LOW_BIT_MAX, cluster, common.stream_ptr(x_t))
-    common.launch_check("diff_encode", rc)
+    common.call("diff_encode", "ditto_diff_encode", _ARGTYPES, x_t.device, x_t.data_ptr(),
+                x_prev.data_ptr(), out.data_ptr(), batch, m, k, m * k, gm * gk,
+                common.LOW_BIT_MAX, cluster)
     return out

@@ -127,10 +127,9 @@ def launch(x_t, x_prev, w_nk, y_prev, classes, low_bits, splits=0) -> torch.Tens
     (m, k), n = x_t.shape[-2:], w_nk.shape[-2]
     lead = x_t.shape[:-2]
     out = torch.empty(lead + (m, n), dtype=torch.int32, device=x_t.device)
-    fn = common.cuda_fn("ditto_diff_matmul", _ARGTYPES)
-    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), w_nk.data_ptr(),
-            None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
-            out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
-            (m // 128) * (k // 128), low_bits, splits, common.stream_ptr(x_t))
-    common.launch_check("ditto_diff_matmul", rc)
+    common.call("ditto_diff_matmul", "ditto_diff_matmul", _ARGTYPES, x_t.device,
+                x_t.data_ptr(), x_prev.data_ptr(), w_nk.data_ptr(),
+                None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
+                out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
+                (m // 128) * (k // 128), low_bits, splits)
     return out

@@ -110,11 +110,9 @@ def launch_encode(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0
     dc = torch.empty(lead + (m, k // 2), dtype=torch.int8, device=x_t.device)
     dh = torch.empty(lead + (m, k), dtype=torch.int8, device=x_t.device)
     cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
-    fn = common.cuda_fn("ditto_diff_encode_fused", _ENCODE_ARGTYPES)
-    rc = fn(x_t.data_ptr(), x_prev.data_ptr(), classes.data_ptr(), dc.data_ptr(),
-            dh.data_ptr(), batch, m, k, m * k, gm * gk, common.LOW_BIT_MAX, cluster,
-            common.stream_ptr(x_t))
-    common.launch_check("diff_encode_fused", rc)
+    common.call("diff_encode_fused", "ditto_diff_encode_fused", _ENCODE_ARGTYPES, x_t.device,
+                x_t.data_ptr(), x_prev.data_ptr(), classes.data_ptr(), dc.data_ptr(),
+                dh.data_ptr(), batch, m, k, m * k, gm * gk, common.LOW_BIT_MAX, cluster)
     return classes, dc, dh
 
 
@@ -172,12 +170,11 @@ def launch_matmul(w_nk, dcache, dhigh, classes, y_prev, splits=0) -> torch.Tenso
     (m, k), n = dhigh.shape[-2:], w_nk.shape[-2]
     lead = dhigh.shape[:-2]
     out = torch.empty(lead + (m, n), dtype=torch.int32, device=dhigh.device)
-    fn = common.cuda_fn("ditto_fused_matmul", _MATMUL_ARGTYPES)
-    rc = fn(w_nk.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
-            None if y_prev is None else y_prev.data_ptr(), out.data_ptr(), math.prod(lead),
-            m, n, k, n * k, m * k, m * n, (m // 128) * (k // 128), splits,
-            common.stream_ptr(dhigh))
-    common.launch_check("ditto_fused_matmul", rc)
+    common.call("ditto_fused_matmul", "ditto_fused_matmul", _MATMUL_ARGTYPES, dhigh.device,
+                w_nk.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
+                None if y_prev is None else y_prev.data_ptr(), out.data_ptr(),
+                math.prod(lead), m, n, k, n * k, m * k, m * n, (m // 128) * (k // 128),
+                splits)
     return out
 
 

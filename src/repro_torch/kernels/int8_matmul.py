@@ -86,8 +86,7 @@ def launch(x, w_nk, splits=0) -> torch.Tensor:
     (m, k), n = x.shape[-2:], w_nk.shape[-2]
     lead = x.shape[:-2]
     out = torch.empty(lead + (m, n), dtype=torch.int32, device=x.device)
-    fn = common.cuda_fn("ditto_int8_matmul", _ARGTYPES)
-    rc = fn(x.data_ptr(), w_nk.data_ptr(), out.data_ptr(), math.prod(lead), m, n, k,
-            m * k, n * k, m * n, splits, common.stream_ptr(x))
-    common.launch_check("int8_matmul", rc)
+    common.call("int8_matmul", "ditto_int8_matmul", _ARGTYPES, x.device, x.data_ptr(),
+                w_nk.data_ptr(), out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k,
+                m * n, splits)
     return out

@@ -14,9 +14,10 @@ Mirror of the parts of ``src/repro/serve/`` ported so far:
       scheduler's retry/fallback ladder and the re-anchor watchdog);
   :class:`ServeScheduler` — continuous batching across submissions (sync
       coalescing, an async dispatch thread with deadlines and shedding,
-      the degradation ladder, graph warmup); one :class:`Ticket` a request.
-
-The mesh comes with a later slice (ROADMAP.md, queue 1).
+      the degradation ladder, graph warmup); one :class:`Ticket` a request;
+  :class:`ServeMesh` — the scheduler over several devices (or one device
+      named several times): per-shard lanes, routing, work stealing and
+      dp-split dispatch.
 """
 from ..core.ditto.plan import DittoPlan, PlanSchedule
 from . import faults
@@ -24,6 +25,7 @@ from .bucketing import DEFAULT_MAX_BATCH, bucket_for, pad_batch
 from .cache import CompiledRunnerCache, RunnerKey, cfg_signature
 from .faults import (Fault, FaultInjector, InjectedFault, NumericalFault,
                      ResourceExhausted, chaos_schedule, inject)
+from .mesh import ServeMesh
 from .scheduler import DispatchFailed, RequestShed, SchedulerDied, ServeScheduler, Ticket
 from .session import ChunkResult, ServeResult, ServeSession
 
@@ -38,6 +40,7 @@ __all__ = [
     "ServeResult",
     "ServeSession",
     "ServeScheduler",
+    "ServeMesh",
     "Ticket",
     "SchedulerDied",
     "DispatchFailed",

@@ -45,6 +45,15 @@ happen there), as PyTorch's capture recipe does. All graphs share one
 memory pool and replay under the cache's lock. A capture or a replay that
 fails raises; nothing falls back to an uncaptured or a CPU step.
 
+A cache is bound to one device: the device of the params tree it binds
+(:meth:`CompiledRunnerCache.weights_for`). Its weights, arenas, side
+stream and capture stream live there, and a dispatch whose inputs, state
+or params live elsewhere raises before any capture (the reference puts
+the placement into its executables' fingerprint). A mesh therefore gives
+every device of every shard a cache of its own (``serve/mesh.py``). The
+captures of all caches in the process take one lock, so two shards
+never capture at once.
+
 A capture runs with ``capture_error_mode="thread_local"``: only the
 capturing thread is barred from synchronizing CUDA calls while it lasts.
 Under the default ``"global"`` mode a ``cudaMalloc`` or a synchronize on
@@ -70,6 +79,11 @@ from ..core.ditto.dit_runner import DittoDiT
 from ..core.ditto.compiled import CompiledDittoEngine
 from ..core.ditto.engine import DittoEngine
 from ..core.ditto.plan import DittoPlan, segment_resolved, segment_view
+
+#: Held by every capture in the process: PyTorch's graph capture expects one
+#: capture under way at a time, and the launch counters a capture reads are
+#: the process's.
+_CAPTURE_LOCK = threading.Lock()
 
 
 def cfg_signature(cfg) -> tuple:
@@ -102,6 +116,10 @@ class RunnerKey:
     @property
     def fused(self) -> bool:
         return self.plan_sig[3]
+
+    @property
+    def mesh(self) -> tuple | None:
+        return self.plan_sig[4]
 
 
 def _launch_counts() -> dict[str, int]:
@@ -159,6 +177,12 @@ class ArenaState(dict):
         return _map_state(torch.clone, self)
 
 
+def _same_device(what: str, t: torch.Tensor | None, dev: torch.device) -> None:
+    if t is not None and t.device != dev:
+        raise ValueError(f"this runner cache is bound to {dev}; the dispatch's {what} lives on "
+                         f"{t.device} (use a cache for each device)")
+
+
 class _Arena:
     """The fixed-address buffers every graph of one (cfg, bucket) reads:
     temporal state, per-sample scales, static inputs and the dparams tree
@@ -188,7 +212,9 @@ class _Arena:
         return sum(t.numel() * t.element_size() for t in own)
 
     def load(self, dparams: dict, state, latents, t, labels) -> None:
-        """Copy what differs from the last replay into the fixed buffers."""
+        """Copy what differs from the last replay into the fixed buffers.
+        Raises ``ValueError`` for a state or scale on another device."""
+        dev = self.latents.device
         if state is not self.holder:
             if isinstance(state, ArenaState):
                 raise RuntimeError(
@@ -196,6 +222,7 @@ class _Arena:
                     "another sample in flight; serve one sample per bucket at a time")
             for name, st in state.items():
                 for k, v in st.items():
+                    _same_device(f"state {name}.{k}", v, dev)
                     self.state[name][k].copy_(v)
             self.holder = ArenaState(self.state)
         if dparams is not self.scales_from:
@@ -203,6 +230,7 @@ class _Arena:
                 own = self.dparams[name]
                 for k, v in p.items():
                     if v is not own[k]:
+                        _same_device(f"param {name}.{k}", v, dev)
                         own[k].copy_(v)  # scales per sample; foreign weights too
             self.scales_from = dparams
         self.latents.copy_(latents)
@@ -267,7 +295,9 @@ class CompiledRunnerCache:
         self.misses = 0
         self._arenas: dict[tuple, _Arena] = {}
         self._bound = None  # (params tree, fingerprint, weights)
+        self.device: torch.device | None = None  # the bound params' device
         self._pool = None
+        self._capture_stream = None
         self._lock = threading.RLock()
         self.sample_lock = threading.RLock()
         self._tls = threading.local()
@@ -301,9 +331,10 @@ class CompiledRunnerCache:
         """Per linear layer ``dict(w_qk, w_scale, bias)`` for ``params``: built
         from ``engine``'s registered weights the first time (``w_qk`` is the
         int8 weight K-major, as the kernels read it), the same tensors for
-        every later engine of the same params. Raises ``ValueError`` for
-        another params tree or one changed in place: the cache's graphs
-        read the weights and params it was bound to."""
+        every later engine of the same params, on the params' device (the
+        cache's from then on). Raises ``ValueError`` for another params
+        tree or one changed in place: the cache's graphs read the weights
+        and params it was bound to."""
         with self._lock:
             fp = _fingerprint(params)
             if self._bound is not None:
@@ -313,12 +344,18 @@ class CompiledRunnerCache:
                         "was changed in place); its graphs read the bound weights. "
                         "clear() it or use another cache")
                 return self._bound[2]
-            weights = {name: dict(w_qk=st.w.q.t().contiguous(), w_scale=st.w.scale,
-                                  bias=st.bias)
+            dev = next(t for _, t in _leaves(params)).device
+
+            def on(t):
+                return None if t is None else t.to(dev)
+
+            weights = {name: dict(w_qk=st.w.q.t().contiguous().to(dev), w_scale=on(st.w.scale),
+                                  bias=on(st.bias))
                        for name, st in engine.layers.items() if st.w is not None}
             # the leaves are held so their storage cannot be reused under the
             # recorded pointers
             self._bound = ([t for _, t in _leaves(params)], fp, weights)
+            self.device = dev
             return weights
 
     def _check_params(self, mparams) -> None:
@@ -333,6 +370,8 @@ class CompiledRunnerCache:
         there: a graph replay on the card, the step itself on the CPU."""
         with self._lock:
             self._check_params(mparams)
+            _same_device("latents", latents, self.device)
+            _same_device("labels", labels, self.device)
             akey = (runner.key.cfg_sig, latents.shape[0])
             arena = self._arenas.get(akey)
             if arena is None:
@@ -362,25 +401,39 @@ class CompiledRunnerCache:
         return (arena.dparams, mparams, arena.state, arena.latents, arena.t, labels)
 
     def _capture(self, runner: _Runner, arena: _Arena, mparams, has_labels: bool) -> _Graph:
-        """Warm the step once uncaptured on a side stream, then capture it.
-        The warm step writes the arena's state in place, so it runs on a
-        copy of the state that is put back before the capture."""
+        """Warm the step once uncaptured on a side stream, then capture it,
+        on the cache's device and under the process's capture lock (so the
+        launch counters see this capture's launches alone). The warm step
+        writes the arena's state in place, so it runs on a copy of the
+        state that is put back before the capture."""
+        with _CAPTURE_LOCK:
+            return self._capture_locked(runner, arena, mparams, has_labels)
+
+    def _capture_locked(self, runner: _Runner, arena: _Arena, mparams,
+                        has_labels: bool) -> _Graph:
         args = self._args(arena, mparams, has_labels)
+        dev = self.device
         saved = _map_state(torch.clone, arena.state)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(cur)
         with torch.cuda.stream(side):
             runner.step(*args)
-        torch.cuda.current_stream().wait_stream(side)
+        cur.wait_stream(side)
         for name, st in saved.items():
             for k, v in st.items():
                 arena.state[name][k].copy_(v)
         del saved
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+            # PyTorch's default capture stream is made once, on whichever
+            # device is current then: each cache captures on its own
+            self._capture_stream = torch.cuda.Stream(device=dev)
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with torch.cuda.device(dev), torch.cuda.graph(
+                graph, pool=self._pool, stream=self._capture_stream,
+                capture_error_mode="thread_local"):
             out, _, aux = runner.step(*args)
             flat, keys = _flat_aux(aux)
         after = _launch_counts()
@@ -475,6 +528,21 @@ class CompiledRunnerCache:
                 "replays": sum(self.replays.values()),
                 "arena_bytes": {bucket: a.nbytes() for (_, bucket), a in self._arenas.items()}}
 
+    @staticmethod
+    def stats_of(caches) -> dict[str, Any]:
+        """:meth:`stats` summed over ``caches`` (a mesh's), arena bytes by
+        bucket; ``{}`` for none."""
+        out: dict[str, Any] = {}
+        for c in caches:
+            for k, v in c.stats().items():
+                if k == "arena_bytes":
+                    merged = out.setdefault(k, {})
+                    for b, nb in v.items():
+                        merged[b] = merged.get(b, 0) + nb
+                else:
+                    out[k] = out.get(k, 0) + v
+        return out
+
     def clear(self) -> None:
         """Drop every runner, graph, arena and the params binding."""
         with self._lock:
@@ -484,5 +552,7 @@ class CompiledRunnerCache:
             self.replays.clear()
             self._arenas.clear()
             self._bound = None
+            self.device = None
             self._pool = None
+            self._capture_stream = None
             self.hits = self.misses = 0

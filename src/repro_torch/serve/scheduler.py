@@ -1,7 +1,8 @@
 """ServeScheduler: continuous batching across request submissions.
 
-Mirror of ``src/repro/serve/scheduler.py`` in solo mode (one
-:class:`ServeSession`; the mesh mode comes with ``serve/mesh.py``).
+Mirror of ``src/repro/serve/scheduler.py``: solo mode (one
+:class:`ServeSession`) and mesh mode (one session a shard of a
+:class:`~repro_torch.serve.mesh.ServeMesh`, below).
 
 ``ServeSession.serve`` batches WITHIN one call: each call chunks to
 ``max_batch`` and pads its own remainder chunk up to a power-of-two
@@ -53,9 +54,33 @@ On the card, the first request of a runner key captures its CUDA graph on
 the dispatching thread (the dispatch thread in async mode) while clients
 keep submitting and allocating on theirs. The runner cache captures with
 ``capture_error_mode="thread_local"``, so only the capturing thread is
-barred from synchronizing calls during a capture; the session synchronizes
-the card after each chunk, and a ticket's rows are assembled and their
-stream synchronized before ``result()`` hands them to another thread.
+barred from synchronizing calls during a capture; the session waits for
+its own streams after each chunk, and a ticket's rows are assembled (each
+piece after a wait on the stream that produced it, moved to the device of
+the ticket's first rows) and their stream synchronized before
+``result()`` hands them to another thread.
+
+Mesh mode
+---------
+
+``mesh`` (a :class:`~repro_torch.serve.mesh.ServeMesh`) puts the scheduler
+on several devices: one :class:`ServeSession` a shard, every submitted plan
+stamped with the mesh signature (``mesh_devices`` / ``mesh_axis`` end
+``cache_sig()``, so mesh groups never coalesce with unsharded ones), and
+per-shard dispatch: each group is routed to the shard with the fewest
+queued rows when it is created (round-robin on a tie), and in async mode
+each shard runs its own dispatch thread (``ditto-serve-shard{k}``) over its
+own groups. A shard with no due work of its own STEALS due work (a full
+bucket, a nearing deadline, a demanded or drained tail) from a sibling
+that is mid-dispatch, gated by ``mesh.steal`` / ``mesh.steal_min_rows``,
+and serves it on its own session, bit-identically (per-sample calibration
+makes the serving device invisible in the rows); a steal counts as
+trigger ``"steal"``. Deadlines, shedding and the ladder stay per dispatch,
+so a fault on one shard walks that dispatch's ladder and no sibling's.
+Port divergence, on purpose: each shard's session has runner caches of its
+own (the reference shares one: a CUDA graph and its arena are bound to one
+device and one sample at a time, so a shared cache would run the shards
+one after another).
 
 Completed tickets RETIRE to counters; ``retain=True`` keeps the full
 ``tickets`` / ``dispatches`` / ``Ticket.results`` record (every
@@ -152,18 +177,27 @@ class Ticket:
 
     # ------------------------------------------------------------- internal
     # all mutation happens under the scheduler's condition lock
-    def _deliver(self, dst: int, rows: torch.Tensor, result: ServeResult | None) -> None:
-        # dst = this piece's row offset within the request, fixed at take time
-        self._pieces.append((dst, rows))
+    def _deliver(self, dst: int, rows: torch.Tensor, result: ServeResult | None,
+                 stream=None) -> None:
+        # dst = this piece's row offset within the request, fixed at take
+        # time: split pieces may be served on different shard threads and
+        # complete out of order; stream = the CUDA stream that produced rows
+        self._pieces.append((dst, rows, stream))
         self._filled += rows.shape[0]
         if result is not None:
             self.results.append(result)
 
     def _finish(self, now: float) -> None:
-        pieces = [rows for _, rows in sorted(self._pieces, key=lambda p: p[0])]
+        pieces = sorted(self._pieces, key=lambda p: p[0])
+        dev = pieces[0][1].device  # the ticket's device: where its first rows were served
+        rows = []
+        for _, piece, stream in pieces:
+            if stream is not None:  # made on another shard's stream (or card)
+                torch.cuda.current_stream(piece.device).wait_stream(stream)
+            rows.append(piece.to(dev))
         # a fresh tensor even for one piece: the ticket must not pin the
         # dispatch's padded sample, of which each piece is a view
-        sample = torch.cat(pieces, dim=0)
+        sample = torch.cat(rows, dim=0)
         if sample.is_cuda:
             # assembled on the dispatching thread's stream; the client reads
             # it on its own
@@ -196,10 +230,13 @@ class _Group:
     """FIFO queue of pending requests sharing one behavioral group key.
     ``plan`` is the first-seen normalized plan/schedule of the group; every
     member behaves identically to it, so dispatching all members under it
-    is exact."""
+    is exact. ``shard`` is the mesh shard whose queue owns the group (0,
+    the only session, in solo mode); a sibling may still steal its due
+    work."""
 
-    def __init__(self, plan: DittoPlan | PlanSchedule):
+    def __init__(self, plan: DittoPlan | PlanSchedule, shard: int = 0):
         self.plan = plan
+        self.shard = shard
         self.pending: deque[_Pending] = deque()
 
     @property
@@ -226,11 +263,14 @@ def _bucket_ladder(max_batch: int) -> list[int]:
 
 
 class ServeScheduler:
-    """Continuous-batching front end over one :class:`ServeSession`.
+    """Continuous-batching front end over one :class:`ServeSession` (or one
+    a shard of ``mesh``).
 
     ``plan`` is the default for submissions that carry none; the session
     and its runner ``cache`` belong to the scheduler; ``device`` is the
-    session's (default: the card). ``eager=False`` queues everything until
+    session's (default: the card). ``mesh`` (a :class:`ServeMesh`) serves
+    on its shards instead (``device`` is then unused; ``cache`` is shard
+    0's first device's). ``eager=False`` queues everything until
     ``flush()``.
 
     ``async_mode=True`` starts the background dispatch thread (a daemon):
@@ -244,16 +284,26 @@ class ServeScheduler:
     """
 
     def __init__(self, params, cfg, sched, plan: DittoPlan | PlanSchedule | None = None, *,
-                 cache: CompiledRunnerCache | None = None, device=None,
+                 cache: CompiledRunnerCache | None = None, device=None, mesh=None,
                  eager: bool = True, async_mode: bool = False,
                  dispatch_interval_ms: float = 10.0, retain: bool = False,
                  collect_done: bool = False, shed_expired: bool = False,
                  clock: Callable[[], float] = time.monotonic):
         plan = plan if plan is not None else DittoPlan()
-        session = ServeSession(params, cfg, sched, plan, cache=cache, device=device)
-        self._init_runtime(session, eager=eager, async_mode=async_mode,
-                           dispatch_interval_ms=dispatch_interval_ms, retain=retain,
-                           collect_done=collect_done, shed_expired=shed_expired, clock=clock)
+        sessions = None
+        if mesh is not None:
+            # one session a shard, each with runner caches of its own
+            plan = mesh.plan_for(plan)
+            sessions = [ServeSession(params, cfg, sched, plan, cache=cache if k == 0 else None,
+                                     mesh=mesh.shard_devices(k))
+                        for k in range(mesh.n_shards)]
+            session = sessions[0]
+        else:
+            session = ServeSession(params, cfg, sched, plan, cache=cache, device=device)
+        self._init_runtime(session, mesh=mesh, sessions=sessions, eager=eager,
+                           async_mode=async_mode, dispatch_interval_ms=dispatch_interval_ms,
+                           retain=retain, collect_done=collect_done, shed_expired=shed_expired,
+                           clock=clock)
 
     @classmethod
     def from_session(cls, session, *, eager: bool = True, async_mode: bool = False,
@@ -270,8 +320,13 @@ class ServeScheduler:
         return s
 
     def _init_runtime(self, session, *, eager, async_mode, dispatch_interval_ms, retain,
-                      collect_done, shed_expired, clock):
+                      collect_done, shed_expired, clock, mesh=None, sessions=None):
         self.session = session
+        self.mesh = mesh
+        # per-shard sessions (mesh mode); solo mode serves everything on
+        # self.session, which is also sessions[0] in mesh mode
+        self._sessions = sessions if sessions is not None else [session]
+        self._n_shards = mesh.n_shards if mesh is not None else 1
         self.eager = eager
         self.async_mode = async_mode
         self.retain = retain
@@ -300,16 +355,29 @@ class ServeScheduler:
         self._died: BaseException | None = None
         # "steal" is the mesh's trigger; solo mode keeps it at 0
         self._triggers = {"full": 0, "deadline": 0, "demand": 0, "drain": 0, "steal": 0}
-        self._warm_captures: int | None = None  # the cache's captures when warmup ended
+        # mesh accounting: dispatches / rows per serving shard, steal events
+        self._shard_dispatches = [0] * self._n_shards
+        self._shard_rows = [0] * self._n_shards
+        self._shard_inflight = [0] * self._n_shards  # steal gate: owner busy?
+        self._steals = 0
+        self._stolen_rows = 0
+        self._rr = 0  # round-robin tiebreak of group routing
+        # each shard's captures when warmup ended
+        self._warm_captures: list[int] | None = None
         self.tickets: list[Ticket] = []
         self.dispatches: list[ServeResult] = []
         self.done: queue.SimpleQueue | None = queue.SimpleQueue() if collect_done else None
         self._threads: list[threading.Thread] = []
         if async_mode:
-            t = threading.Thread(target=self._dispatch_loop, name="ditto-serve-dispatch",
-                                 daemon=True)
-            self._threads.append(t)
-            t.start()
+            # one dispatch thread a shard (solo: one, shard 0), each running
+            # the policy over its own groups and, in mesh mode, stealing
+            for k in range(self._n_shards):
+                name = ("ditto-serve-dispatch" if self._n_shards == 1
+                        else f"ditto-serve-shard{k}")
+                t = threading.Thread(target=self._dispatch_loop, args=(k,), name=name,
+                                     daemon=True)
+                self._threads.append(t)
+                t.start()
 
     # ------------------------------------------------------------------ api
     @staticmethod
@@ -342,6 +410,10 @@ class ServeScheduler:
         if x.shape[0] < 1:
             raise ValueError("empty request")
         plan = plan if plan is not None else self.session.plan
+        if self.mesh is not None:
+            # every dispatched plan carries the mesh signature: an unstamped
+            # override would land in a separate (unsharded) group and key
+            plan = self.mesh.plan_for(plan)
         plan = plan.normalized()
         if is_unset(deadline_ms):
             deadline_ms = plan.deadline_ms
@@ -357,7 +429,7 @@ class ServeScheduler:
             key = (self._group_key(plan), labels is not None)
             group = self._groups.get(key)
             if group is None:
-                group = self._groups[key] = _Group(plan)
+                group = self._groups[key] = _Group(plan, shard=self._route_locked())
             ticket = Ticket(self, self._n_submitted, x.shape[0], plan, deadline_ms, now)
             self._n_submitted += 1
             self._rows_submitted += ticket.batch
@@ -394,12 +466,15 @@ class ServeScheduler:
                             group, min(group.queued_rows, group.plan.max_batch), "drain")
             return [t for t in snapshot if t.done]
 
-    def poll(self) -> int:
+    def poll(self, shard: int | None = None) -> int:
         """Run at most one due dispatch on the calling thread and return the
-        rows it dispatched (0 = nothing due): the dispatch thread's policy
-        (``_next_job_locked``), for fake-clock tests and thread-free use."""
+        rows it dispatched (0 = nothing due): the dispatch threads' policy
+        (``_next_job_locked``), for fake-clock tests and thread-free use.
+        ``shard`` polls as that shard's dispatch thread would: its own
+        groups first, then the steal scan, serving on its own session;
+        ``None`` scans every group with no stealing."""
         with self._cv:
-            job = self._next_job_locked()
+            job = self._next_job_locked(shard)
             if job is None:
                 return 0
             group, rows, trigger = job
@@ -407,12 +482,15 @@ class ServeScheduler:
                 batch = self._take_locked(group, rows)
             except _TakeFailed:
                 return rows  # covered tickets failed; the queue is repaired
+            serve_shard = shard if shard is not None else group.shard
             self._inflight += 1
+            self._shard_inflight[serve_shard] += 1
         try:
-            self._serve_and_deliver(group, batch, trigger)
+            self._serve_and_deliver(group, batch, trigger, shard=serve_shard)
         finally:
             with self._cv:
                 self._inflight -= 1
+                self._shard_inflight[serve_shard] -= 1
                 self._cv.notify_all()
         return rows
 
@@ -460,8 +538,11 @@ class ServeScheduler:
 
         The reference compiles ahead of time: its ``aot_compiled`` is the
         port's ``captures`` (a capture is where the port builds the step it
-        replays), its ``traces`` has no counterpart (nothing is traced),
-        and ``primed`` is the mesh's and stays 0. ``plans`` defaults to the
+        replays), and its ``traces`` has no counterpart (nothing is traced).
+        In mesh mode every sibling shard captures the same ladder in its own
+        caches (a graph is bound to one device's addresses), and ``primed``
+        counts those captures (0 in solo mode; ``captures`` is shard 0's).
+        ``plans`` defaults to the
         session plan, ``buckets`` to each plan's power-of-two ladder (keep
         ``max_batch`` <= 16 at DiT-XL/2: a bucket's state arena is 0.58 GB
         a sample, per ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at 700
@@ -474,18 +555,17 @@ class ServeScheduler:
         for p in plans:
             by_probe.setdefault((p.policy, p.steps), []).append(p)
         out = {"captures": 0, "primed": 0}
-        cache = self.session.cache
         for group_plans in by_probe.values():
             modes = self._probe_modes(group_plans[0], labels=labels, probe_seed=probe_seed)
             for p in group_plans:
+                if self.mesh is not None:
+                    p = self.mesh.plan_for(p).normalized()
                 ladder = _bucket_ladder(p.max_batch) if buckets is None else buckets
-                r = cache.warmup(self.session.cfg, modes, [p], ladder, labels=labels,
-                                 params=self.session.params)
-                out["captures"] += r["captures"]
-        if self.session.device.type == "cuda":
-            torch.cuda.synchronize(self.session.device)
+                for k, sess in enumerate(self._sessions):
+                    out["primed" if k else "captures"] += sess.warmup(modes, [p], ladder,
+                                                                      labels=labels)
         with self._cv:
-            self._warm_captures = cache.n_captures
+            self._warm_captures = [sess.n_captures for sess in self._sessions]
         out["wall_s"] = time.monotonic() - t0
         return out
 
@@ -523,19 +603,53 @@ class ServeScheduler:
                 self._urgent.add(ticket.index)
                 self._cv.notify_all()
 
-    def _next_job_locked(self) -> tuple[_Group, int, str] | None:
+    def _route_locked(self) -> int:
+        """Shard of a newly created group: the fewest queued rows over its
+        current groups, round-robin on a tie (an idle mesh spreads new
+        groups instead of piling them on shard 0)."""
+        if self._n_shards == 1:
+            return 0
+        load = [0] * self._n_shards
+        for g in self._groups.values():
+            load[g.shard] += g.queued_rows
+        order = [(self._rr + k) % self._n_shards for k in range(self._n_shards)]
+        shard = min(order, key=lambda k: load[k])
+        self._rr = (shard + 1) % self._n_shards
+        return shard
+
+    def _next_job_locked(self, shard: int | None = None) -> tuple[_Group, int, str] | None:
         """The dispatch policy: the next (group, rows, trigger) to serve, or
         None if nothing is due. Deadline-due partials preempt full buckets (a
         full bucket loses no budget by waiting one policy round; an expiring
         request does). With ``shed_expired=True``, requests whose budget
-        already expired undispatched are rejected first."""
+        already expired undispatched are rejected first.
+
+        ``shard`` scopes the scan to that shard's own groups (the per-shard
+        dispatch threads); ``None`` scans everything. A shard with no due
+        work of its own STEALS: it runs the same scan over sibling groups
+        whose owner is mid-dispatch and that hold at least
+        ``mesh.steal_min_rows`` — due work the owner is too busy to take,
+        never a partial bucket an idle owner is still coalescing."""
         f = faults.fire("scheduler.policy")
         if f is not None:
             faults.perform(f)
         now = self._clock()
         if self.shed_expired:
             self._shed_locked(now)
-        return self._policy_scan_locked(list(self._groups.values()), now)
+        groups = (list(self._groups.values()) if shard is None else
+                  [g for g in self._groups.values() if g.shard == shard])
+        job = self._policy_scan_locked(groups, now)
+        if job is not None or shard is None:
+            return job
+        if self.mesh is not None and self.mesh.steal:
+            victims = [g for g in self._groups.values()
+                       if g.shard != shard and self._shard_inflight[g.shard]
+                       and g.queued_rows >= self.mesh.steal_min_rows]
+            job = self._policy_scan_locked(victims, now)
+            if job is not None:
+                group, rows, _ = job
+                return group, rows, "steal"
+        return None
 
     def _policy_scan_locked(self, groups, now: float) -> tuple[_Group, int, str] | None:
         """One pass of the deadline -> full -> demand -> drain policy."""
@@ -589,21 +703,23 @@ class ServeScheduler:
         if any_shed:
             self._cv.notify_all()
 
-    def _dispatch_loop(self) -> None:
+    def _dispatch_loop(self, shard: int = 0) -> None:
         # any escape from the loop body lands in _on_died, so a dead thread
-        # fails fast instead of stranding result() callers
+        # fails fast instead of stranding result() callers; a death on any
+        # shard fails the whole scheduler (serve faults recover through the
+        # per-dispatch ladder, not thread death)
         try:
-            self._dispatch_loop_inner()
+            self._dispatch_loop_inner(shard)
         except BaseException as exc:  # noqa: BLE001 — death must be typed
             self._on_died(exc)
 
-    def _dispatch_loop_inner(self) -> None:
+    def _dispatch_loop_inner(self, shard: int) -> None:
         while True:
             with self._cv:
                 while True:
                     if self._closed:
                         return
-                    job = self._next_job_locked()
+                    job = self._next_job_locked(shard)
                     if job is not None:
                         break
                     self._cv.wait(self._next_wakeup_locked())
@@ -613,14 +729,16 @@ class ServeScheduler:
                 except _TakeFailed:
                     continue  # tickets failed, queue repaired — move on
                 self._inflight += 1
+                self._shard_inflight[shard] += 1
             try:
                 fault = faults.fire("scheduler.dispatch")
                 if fault is not None:
                     faults.perform(fault)
-                self._serve_and_deliver(group, batch, trigger)
+                self._serve_and_deliver(group, batch, trigger, shard=shard)
             finally:
                 with self._cv:
                     self._inflight -= 1
+                    self._shard_inflight[shard] -= 1
                     self._cv.notify_all()
 
     def _on_died(self, exc: BaseException) -> None:
@@ -682,9 +800,12 @@ class ServeScheduler:
             group.pending.popleft()
         return x, labels, segments
 
-    def _serve_and_deliver(self, group: _Group, batch, trigger: str) -> ServeResult | None:
+    def _serve_and_deliver(self, group: _Group, batch, trigger: str,
+                           shard: int | None = None) -> ServeResult | None:
         """Serve one taken batch (outside the lock: submissions go on while
-        the card runs) and deliver each covered ticket its rows.
+        the card runs) and deliver each covered ticket its rows. ``shard``
+        is the SERVING shard: the thief's own on a stolen job, the group's
+        otherwise.
 
         A failed serve walks the plan's degradation ladder: up to
         ``max_retries`` re-dispatches with capped exponential backoff, each
@@ -699,6 +820,8 @@ class ServeScheduler:
         capture or replay error fails the tickets at once. Nothing serves
         elsewhere quietly."""
         x, labels, segments = batch
+        shard = group.shard if shard is None else shard
+        session = self._sessions[shard] if shard < len(self._sessions) else self.session
         plan = group.plan
         ladder = (plan,) + tuple(plan.fallback_plans() if hasattr(plan, "fallback_plans")
                                  else ())
@@ -719,7 +842,7 @@ class ServeScheduler:
                     time.sleep(min(backoff_ms * 2 ** (attempt - 1), BACKOFF_CAP_MS) / 1e3)
             ran = attempt + 1
             try:
-                result = self.session.serve(x, labels, plan=used_plan)
+                result = session.serve(x, labels, plan=used_plan)
                 break
             except Exception as exc:
                 last_exc = exc
@@ -740,19 +863,27 @@ class ServeScheduler:
             if not self.async_mode:
                 raise exc  # sync callers get the error on their own stack
             return None
+        stream_of = getattr(session, "stream", None)
+        stream = (stream_of(result.sample.device)
+                  if stream_of is not None and result.sample.is_cuda else None)
         now = self._clock()
         with self._cv:
             self._n_dispatches += 1
             self._dispatched_rows += x.shape[0]
             self._pad_rows += result.pad_rows
             self._triggers[trigger] += 1
+            self._shard_dispatches[shard] += 1
+            self._shard_rows[shard] += x.shape[0]
+            if trigger == "steal":
+                self._steals += 1
+                self._stolen_rows += x.shape[0]
             if self.retain:
                 self.dispatches.append(result)
             off = 0
             for ticket, dst, c in segments:
                 ticket.served_with = used_plan
                 ticket._deliver(dst, result.sample[off:off + c],
-                                result if self.retain else None)
+                                result if self.retain else None, stream)
                 off += c
                 if ticket._filled == ticket.batch:
                     ticket._finish(now)
@@ -798,9 +929,11 @@ class ServeScheduler:
         return self._naive_pad_rows
 
     def stats(self) -> dict[str, Any]:
-        """The scheduler's counters (the reference's solo keys), then the
-        session's (its requests and the runner cache's captures, replays),
-        then, after :meth:`warmup`, ``captures_after_warmup``."""
+        """The scheduler's counters (the reference's keys), then the
+        session's (its requests and the runner caches' captures, replays;
+        in mesh mode summed over the shards), then, after :meth:`warmup`,
+        ``captures_after_warmup``. Mesh mode adds the reference's ``mesh``
+        block, with each shard's captures and captures after warmup."""
         with self._cv:
             out = {"submitted": self._n_submitted,
                    "submitted_rows": self._rows_submitted,
@@ -820,7 +953,29 @@ class ServeScheduler:
                    "shed": self._shed,
                    "died": self._died is not None}
             warm = self._warm_captures
-        out.update(self.session.stats())
+            mesh = None if self.mesh is None else {
+                "n_devices": self.mesh.n_devices, "dp": self.mesh.dp,
+                "n_shards": self._n_shards,
+                "shard_dispatches": list(self._shard_dispatches),
+                "shard_rows": list(self._shard_rows),
+                "steals": self._steals, "stolen_rows": self._stolen_rows}
+        if mesh is None:
+            out.update(self.session.stats())
+        else:
+            for sess in self._sessions:
+                with sess._stats_lock:
+                    out["batches"] = out.get("batches", 0) + sess.batches_served
+                    out["requests"] = out.get("requests", 0) + sess.requests_served
+                    out["watchdog_events"] = (out.get("watchdog_events", 0)
+                                              + sess.watchdog_events)
+            shard_caches = [getattr(sess, "caches", ()) for sess in self._sessions]
+            out.update(CompiledRunnerCache.stats_of(c for caches in shard_caches for c in caches))
+            mesh["shard_captures"] = [sum(c.n_captures for c in caches)
+                                      for caches in shard_caches]
+            out["mesh"] = mesh
         if warm is not None:
-            out["captures_after_warmup"] = self.session.cache.n_captures - warm
+            after = [sess.n_captures - w for sess, w in zip(self._sessions, warm)]
+            out["captures_after_warmup"] = sum(after)
+            if mesh is not None:
+                mesh["captures_after_warmup"] = after
         return out

@@ -45,7 +45,7 @@ def _on(device, params, sched, x_T, labels):
 
 def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
                   plan: DittoPlan | PlanSchedule | None = None, *, runner_cache=None,
-                  bucket: int | None = None, device=None):
+                  bucket: int | None = None, device=None, mesh=None):
     """The deployment pass: eager calibration (+ the Defo mode decision
     after step 2), then the remaining steps through the kernels — act
     layers on int8_matmul, diff layers on diff_encode -> ditto_diff_matmul
@@ -68,8 +68,22 @@ def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
     to that size by row replication before the pass and slices the sample
     back afterwards (``serve/bucketing.py``); records are collected at
     bucket scale. Returns (records, sample, engine).
+
+    ``mesh`` (a tuple of ``dit_runner.RowGroup``, one per device of a shard;
+    the port's counterpart of the reference's shard submesh) splits the
+    dispatch when the plan's ``mesh_devices`` (> 1) divides the padded
+    batch: the eager calibration steps run over the whole batch on the
+    first group's device, so Defo decides as unsplit, and the compiled
+    steps by row groups, one per device, each through its own runner cache
+    (``dit_runner.make_denoise_fn(mesh=)``); the records are merged by
+    (layer, step). A batch that ``mesh_devices`` does not divide is
+    replicated, as the reference lays it out: it runs whole on the first
+    device. With ``mesh``, ``device`` and ``runner_cache`` are the first
+    group's.
     """
     plan = DittoPlan() if plan is None else plan
+    if mesh is not None:
+        device, runner_cache = mesh[0].device, mesh[0].cache
     dev = resolve_device(device)
     check_device_block(plan, dev)
     params, sched, x_T, labels = _on(dev, params, sched, x_T, labels)
@@ -78,9 +92,11 @@ def serve_records(params, cfg: dit_mod.DiTCfg, sched, x_T, labels=None,
         from ..serve import bucketing  # function-level: repro_torch.serve imports this module
 
         x_T, labels = bucketing.pad_batch(x_T, labels, bucket)
+    if mesh is not None and (len(mesh) < 2 or x_T.shape[0] % len(mesh)):
+        mesh = None  # one device, or a replicated batch: the whole batch on the first
     eng = DittoEngine(policy=plan.policy, collect_oracle=plan.collect_stats, device=dev)
     fn = make_denoise_fn(params, cfg, eng, plan, runner_cache=runner_cache,
-                         bucket=x_T.shape[0], device=dev)
+                         bucket=x_T.shape[0], device=dev, mesh=mesh)
     eng.begin_sample()
     sample = diffusion.SAMPLERS[plan.sampler](sched, fn, x_T, steps=plan.steps, labels=labels)
     return eng.records, sample[:true_b], eng

@@ -337,7 +337,8 @@ def test_capture_runs_thread_local(monkeypatch):
     """The runner cache captures with ``capture_error_mode="thread_local"``:
     under the default global mode another thread's allocation or
     synchronize (a client submitting while the dispatch thread captures a
-    new key) would fail or break the capture. The CUDA calls of
+    new key) would fail or break the capture. The capture runs on the
+    cache's own capture stream, on the cache's device. The CUDA calls of
     ``_capture`` are recorded here; the card runs them in chip_smoke.py."""
     seen = {}
 
@@ -356,12 +357,17 @@ def test_capture_runs_thread_local(monkeypatch):
             seen["graph_kw"] = kw
 
     class Stream:
+        def __init__(self, device=None):
+            seen.setdefault("stream_devices", []).append(device)
+
         def wait_stream(self, other):
             pass
 
     monkeypatch.setattr(torch.cuda, "Stream", Stream)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream(("current", device)))
     monkeypatch.setattr(torch.cuda, "stream", Nothing)
+    monkeypatch.setattr(torch.cuda, "device", Nothing)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Nothing)
     monkeypatch.setattr(torch.cuda, "graph", Graph)
@@ -373,7 +379,10 @@ def test_capture_runs_thread_local(monkeypatch):
     (key,) = cache.capture_counts
     runner, arena = cache._steps[key], cache._arenas[(key.cfg_sig, 2)]
     cache._capture(runner, arena, sess.params, True)
-    assert seen["graph_kw"] == {"pool": "pool", "capture_error_mode": "thread_local"}
+    # on its own capture stream, made (as the side stream) on the cache's device
+    assert seen["graph_kw"] == {"pool": "pool", "stream": cache._capture_stream,
+                                "capture_error_mode": "thread_local"}
+    assert seen["stream_devices"] == [("current", cache.device)] + [cache.device] * 2
     assert res.sample.shape == (2, 8, 8, 4)
 
 

@@ -2,8 +2,8 @@
 
 Construction errors, ``normalized``, ``cache_sigs``, ``constant_plan`` and
 ``segment_view`` are held to the reference's on the same inputs (the
-reference's ``cache_sig`` carries ``interpret`` and the mesh signature,
-which the port has not: sigs are compared on the shared fields). The
+reference's ``cache_sig`` carries ``interpret``, which the port has not:
+sigs are compared on the shared fields). The
 segment swap is held inside the port: a schedule that switches
 ``low_bits`` 8 -> 4 (or to the fused flow) at step 1, k or steps - 1 gives,
 at every step, the outputs of the matching constant plan bit for bit,
@@ -57,7 +57,7 @@ def _both(steps, segments):
 def _sig(rsig):
     """The reference's (block, interpret, collect_stats, low_bits, fused,
     mesh) on the port's fields."""
-    return (rsig[0], rsig[2], rsig[3], rsig[4])
+    return (rsig[0], rsig[2], rsig[3], rsig[4], rsig[5])
 
 
 def _view(view):
