@@ -1,6 +1,9 @@
-"""Where a compiled denoising step of the PyTorch/CUDA port spends its time.
+"""Where a compiled denoising step, or an LM prefill and decode step, of the
+PyTorch/CUDA port spends its time.
 
     python3 benchmarks/torch_step_profile.py [--policy act diff diff-fused defo] [--steps 8] [--short 4]
+    python3 benchmarks/torch_step_profile.py --lm qwen3-0.6b [--batch 16] [--cache 32768]
+        [--prompt 512] [--steps 8] [--prefill 32768]
 
 Serves DiT-XL/2 at B = 2 (random weights from a seed, adaLN ``mod`` weights
 refilled N(0, 0.02), as chip_smoke.py does) through
@@ -38,12 +41,33 @@ a port kernel (the first compiled step's) to the end of the call, over
 the call's compiled steps (``window``). That leaves out the device work
 of the first compiled step before its first kernel and leaves in the
 call's few ops after the last step; its ``step_ms`` is not measured.
-Needs a CUDA card.
+In this mode ``device_busy_ms`` is the sum of the activities' device
+times, which counts twice what ran at once.
+
+``--lm ARCH`` profiles a token-only LM config instead, at full width and
+depth (random weights from a seed, the config's dtypes), through
+``launch.steps.make_prefill_step`` / ``make_decode_step`` and
+``chip_smoke.py``'s LM helpers, as that script's ``lm`` phase runs it:
+
+- ``decode``: a ``--prompt``-token prefill at ``--batch``, its cache
+  zero-padded to ``--cache`` slots, then greedy steps. The wall of a step
+  is the median of ``--steps`` unprofiled steps (host clock, each between
+  two ``torch.cuda.synchronize()``); ``torch.profiler`` around ``--steps``
+  more gives, per step, the traced wall, the device's busy time (the union
+  of its kernels', copies' and fills' intervals, so what overlaps counts
+  once) and its idle share of the traced wall, the sum of their device
+  times, the activities, the top device items and the top host ops.
+- ``prefill``: one ``--prefill``-token prompt at B = 1, the same figures
+  over one profiled call after an unprofiled one (``--prefill 0`` skips it).
+
+Each mode prints its rows as JSON lines and the card's name and power
+limit. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,11 +78,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                                "src"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
 from repro_torch.serve import ServeSession  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
@@ -99,23 +126,47 @@ def profiled(inputs, plan: DittoPlan, window: bool = False,
     without an eager record: a compiled step records nothing without
     statistics). ``window``: only the device activities from the first
     launch of a port kernel on."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        records = call(inputs, plan, session)
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    records, events, host, _ = trace(lambda: call(inputs, plan, session))
     if window:
         t0 = min(e.time_range.start for e in events
                  if any(fn in e.name for fn in PORT_KERNELS.values()))
         events = [e for e in events if e.time_range.start >= t0]
+    eager = {r["step"] for r in records if not r.get("compiled")}
+    return by_name(events), host, plan.steps - len(eager)
+
+
+def trace(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result, its device events, the
+    host ops' self time in ms by name and the traced call's wall in ms."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU}
+    return out, [e for e in prof.events() if e.device_type == DeviceType.CUDA], host, wall_ms
+
+
+def by_name(events) -> dict:
+    """Per name, (device ms, count) of the device events."""
     device: dict = {}
     for e in events:
         ms, n = device.get(e.name, (0.0, 0))
         device[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    host = {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()
-            if e.device_type == DeviceType.CPU}
-    eager = {r["step"] for r in records if not r.get("compiled")}
-    return device, host, plan.steps - len(eager)
+    return device
+
+
+def union_ms(events) -> float:
+    """The device's busy ms: the union of the events' intervals, so that
+    activities which ran at once count once."""
+    total, end = 0.0, -math.inf
+    for lo, hi in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
 
 
 def summary(per_step: dict, host: dict) -> dict:
@@ -183,6 +234,65 @@ def step_profile(inputs, run: str, collect_stats: bool, steps: int, short: int,
             **out}
 
 
+def lm_figures(fn, n: int) -> dict:
+    """Per call of ``n`` traced calls of ``fn``: the traced wall, the
+    device's busy ms (the union) and its idle share of that wall, its
+    activities' summed ms, the activities, the top device items (ms, count)
+    and the top host ops (self ms)."""
+    _, events, host, wall_ms = trace(lambda: [fn() for _ in range(n)])
+    busy = union_ms(events) / n
+    return {
+        "traced_wall_ms": wall_ms / n, "device_busy_ms": busy, "device_activity_ms_sum": sum(
+            e.time_range.elapsed_us() for e in events) / 1e3 / n,
+        "device_idle_share": 1 - busy * n / wall_ms, "device_activities": len(events) / n,
+        "top_device_ms_count": sorted(((name[:80], ms / n, k / n) for name, (ms, k)
+                                       in by_name(events).items()), key=lambda t: t[1],
+                                      reverse=True)[:10],
+        "top_host_ms": sorted(((k, v / n) for k, v in host.items()), key=lambda kv: kv[1],
+                              reverse=True)[:10],
+    }
+
+
+def lm_profile(name: str, batch: int, cache_len: int, prompt: int, steps: int,
+               prefill_len: int) -> dict:
+    """The ``--lm`` mode's row: a decode step and a prefill of ``name``."""
+    import chip_smoke as smoke  # its LM helpers: inputs, the padded cache, greedy steps
+
+    arch = configs.get(name)
+    if arch.frontend is not None:
+        raise SystemExit(f"{name}: a token-only arch, please (chip_smoke.py's lm phase covers "
+                         f"the frontends)")
+    model = LM(arch)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    params = model.init(g, device="cuda")
+    prefill, decode = lm_steps.make_prefill_step(arch), lm_steps.make_decode_step(arch)
+    out: dict = dict(arch=arch.name, batch=batch, cache=cache_len, prompt=prompt)
+    logits, pc = prefill(params, smoke.lm_inputs(arch, g, batch, prompt))
+    state = {"pos": prompt, "logits": logits, "cache": smoke.padded_cache(model, pc, cache_len)}
+    del pc
+
+    def step():
+        tok, _ = smoke.greedy(state["logits"], arch)
+        state["logits"], state["cache"] = decode(params, state["cache"],
+                                                 {"tokens": tok, "pos": state["pos"]})
+        state["pos"] += 1
+
+    step()  # warm
+    walls = [smoke.synced_wall(step)[1] * 1e3 for _ in range(steps)]
+    wall_ms = statistics.median(walls)
+    out["decode"] = dict(step_ms_median=wall_ms, step_walls_ms=walls,
+                         tokens_per_s=batch / (wall_ms / 1e3),
+                         **lm_figures(step, steps))
+    del state, logits
+    torch.cuda.empty_cache()
+    if prefill_len:
+        tokens = smoke.lm_inputs(arch, g, 1, prefill_len)
+        _, wall = smoke.synced_wall(lambda: prefill(params, tokens))
+        out["prefill"] = dict(seq=prefill_len, wall_s=wall, tokens_per_s=prefill_len / wall,
+                              **lm_figures(lambda: prefill(params, tokens), 1))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--policy", nargs="+", default=["act", "diff", "diff-fused"],
@@ -190,21 +300,30 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--short", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--lm", metavar="ARCH", help="profile this LM config instead of the DiT")
+    ap.add_argument("--batch", type=int, default=16, help="--lm: the decode batch")
+    ap.add_argument("--cache", type=int, default=32768, help="--lm: the decode cache's slots")
+    ap.add_argument("--prompt", type=int, default=512, help="--lm: the decode prompt")
+    ap.add_argument("--prefill", type=int, default=32768, help="--lm: the prefill's tokens")
     args = ap.parse_args()
-    if not 2 <= args.short < args.steps:
+    if not args.lm and not 2 <= args.short < args.steps:
         ap.error("need 2 <= --short < --steps: steps 0-1 run eager")
     if not torch.cuda.is_available():
         print("torch_step_profile: needs a CUDA card", file=sys.stderr)
         return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}; {smi.stdout.strip()}")
+    if args.lm:
+        row = lm_profile(args.lm, args.batch, args.cache, args.prompt, args.steps, args.prefill)
+        print("lm_profile: " + json.dumps(row), flush=True)
+        return 0
     g = torch.Generator(device="cuda").manual_seed(0)
     params = dit.init(g, dit.DIT_XL2)
     params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
     x_T = torch.randn((2, 32, 32, 4), generator=g, device="cuda")
     labels = torch.tensor([207, 360], device="cuda")
     inputs = (params, dit.DIT_XL2, diffusion.linear_schedule(1000), x_T, labels)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}; {smi.stdout.strip()}")
     for run in args.policy:
         for collect_stats in (True, False):
             for path in ("uncached", "session"):

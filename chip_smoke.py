@@ -96,11 +96,14 @@ Phases (any failure raises and the script exits non-zero):
              on the second dispatch: exactly that ticket walks to
              ``low_bits=4``, the scheduler lives. (c) ``dp=2`` under Defo with
              statistics: the split dispatch's frozen modes, sample and
-             records (by (layer, step); ``mod``'s tile histograms are each
-             device's own) equal the unsharded dispatch's. (d)
+             records (by (layer, step), tile histograms included) equal the
+             unsharded dispatch's. (d)
              ``warmup(buckets=[1, 2, 4])`` captures on both shards
              (``primed`` = the sibling's 3), then no shard captures. Every
-             ticket equals solo ``ServeSession`` serving ``torch.equal``;
+             ticket equals solo ``ServeSession`` serving ``torch.equal``.
+             (e) ``dp=2`` with ``plan.watchdog`` (statistics on, a ``drift``
+             fault armed): the sample, ``watchdog_events`` and records
+             equal the unsplit session's;
              ``int8_matmul``, ``diff_encode`` and both ``ditto_diff_matmul``
              branches must launch from the shards' replayed graphs, and
              both stealing shards must replay diff steps. It prints the
@@ -125,7 +128,29 @@ Phases (any failure raises and the script exits non-zero):
              full width and depth 2 through ``TrainDriver``: 8 steps
              straight against 4, a restart from the checkpoint and 4 more,
              the last losses within 1e-5 (and whether they are bit-identical).
-8. times   — each kernel on the inputs the slice gave it (the last call at
+8. lm      — the LM substrate's serving path at qwen3-0.6b's full width
+             and depth (28 x 1024, 16 / 8 heads of 64, qk-norm, tied and
+             padded vocab; random bf16 weights from a seed) through
+             ``make_prefill_step`` / ``make_decode_step``, the DiT freed
+             first: (a) a prefill of ``SHAPES["prefill_32k"]``'s 32768
+             tokens at B = 1 (8 query chunks of 4096 a layer; the cell's
+             B = 32 is cut for score memory), finite logits; (b) a 512-token
+             prompt at B = 16, its cache zero-padded to ``decode_32k``'s
+             32768 slots, 64 greedy steps with the position on the card,
+             no argmax on a pad column (the cell's B = 128 would need
+             ~240 GB of k / v), rows 0-1's decode logits and cache within
+             ``LM_BF16_TOL`` of a bf16 forward's and prefill's over the
+             same tokens; (c) float32 at full width: decode (the position
+             on the card) == forward over 64 tokens (rel < 2e-3),
+             prefill's last logits ==
+             forward's (rtol = atol = 2e-4), chunked == full ``_sdpa`` at
+             S = 8192 (1e-5); (d) the card's float32 forward against the
+             CPU's on the same weights (B = 1, S = 16, TF32 off, within
+             1e-4 of the logits' scale); (e) smollm-360m, minicpm-2b,
+             internvl2-2b and musicgen-medium at full width, a 512-position
+             prefill at B = 2 and 8 decode steps each, finite. It prints
+             walls, tokens/s and peak memory; no Ditto kernel launches.
+9. times   — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -134,8 +159,8 @@ Phases (any failure raises and the script exits non-zero):
              as a (K, N) contiguous copy and as the transposed view of the
              K-major weight; ``library_ms`` is the faster).
 
-The last lines are the ``scheduler: {...}``, ``mesh: {...}`` and
-``training: {...}`` lines,
+The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
+``training: {...}`` and ``lm: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1257,9 +1282,7 @@ def phase_mesh(params, sched) -> dict:
     recs = {(r["layer"], r["step"]): r for r in got_c.records}
     for r in want_c.records:
         key = (r["layer"], r["step"])
-        differ = [f for f, v in r.items() if recs[key].get(f) != v
-                  and not (f in ("tile_hist", "tile_fracs", "bops_tile")
-                           and r["layer"].endswith(".mod"))]
+        differ = [f for f, v in r.items() if recs[key].get(f) != v]
         if differ or recs[key].keys() != r.keys():
             raise AssertionError(f"mesh dp=2: record {key} differs in {differ}")
     n_act = sum(v == "act" for v in modes.values())
@@ -1267,7 +1290,7 @@ def phase_mesh(params, sched) -> dict:
                       records=len(want_c.records))
     say(f"mesh dp=2: defo modes ({n_act} act, {len(modes) - n_act} diff) == unsharded, the "
         f"sample == unsharded bit for bit, {len(want_c.records)} records equal by (layer, "
-        f"step) (mod's tile histograms are each device's own)")
+        f"step), tile histograms included")
 
     # ---- (d) warmup captures on every shard; serving then captures nothing
     s = ServeScheduler(params, CFG, sched, base, mesh=ServeMesh(2, devices=devs))
@@ -1286,6 +1309,38 @@ def phase_mesh(params, sched) -> dict:
     out["warmup"] = dict(w, shard_dispatches=st["mesh"]["shard_dispatches"],
                          captures_after_warmup=st["mesh"]["captures_after_warmup"])
     say(f"mesh warmup: {json.dumps(out['warmup'])}")
+
+    # ---- (e) the watchdog on a dp=2 split: a drift saturates a step, both
+    # groups re-anchor the next; samples, events and records == unsplit
+    watch = base.replace(collect_stats=True, watchdog=True, reanchor_full_frac=0.9)
+    x, lab = request(4)
+    split = ServeSession(params, CFG, sched, watch.replace(mesh_devices=2), mesh=devs)
+    unsplit = ServeSession(params, CFG, sched, watch)
+    res = {}
+    for name, sess in (("split", split), ("unsplit", unsplit)):
+        with inject(FaultInjector([DRIFT])) as inj:
+            res[name] = sess.serve(x, lab)
+        if len(inj.fired) != 1:
+            raise AssertionError(f"mesh dp=2 watchdog: the drift fired {inj.fired} ({name})")
+    got_c, want_c = res["split"].chunks[0], res["unsplit"].chunks[0]
+    events = want_c.engine.watchdog_events
+    equal("dp=2 watchdog", res["split"].sample, res["unsplit"].sample)
+    if got_c.engine.watchdog_events != events or not events or events[0]["trigger"] != "saturation":
+        raise AssertionError(f"mesh dp=2 watchdog: events {got_c.engine.watchdog_events}, "
+                             f"unsplit {events}")
+    recs = {(r["layer"], r["step"]): r for r in got_c.records}
+    for r in want_c.records:
+        key = (r["layer"], r["step"])
+        differ = [f for f, v in r.items() if recs[key].get(f) != v]
+        if differ or recs[key].keys() != r.keys():
+            raise AssertionError(f"mesh dp=2 watchdog: record {key} differs in {differ}")
+    out["dp2_watchdog"] = dict(events=events, records=len(want_c.records),
+                               reanchor_records=sum(bool(r.get("reanchor"))
+                                                    for r in want_c.records))
+    say(f"mesh dp=2 watchdog: a drift at denoise.step arrival {DRIFT.at}; events {events} == "
+        f"unsplit, the sample == unsplit bit for bit, {len(want_c.records)} records equal by "
+        f"(layer, step)")
+    del split, unsplit, res, got_c, want_c
 
     # ---- the path's kernels ran from the mesh shards' own graphs (the
     # counts, zeroed first, also hold the solo serves' captures)
@@ -1493,6 +1548,296 @@ def phase_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- LM
+LM_ARCH = "qwen3-0.6b"  # full width and depth: 28 layers, d 1024, 16 / 8 heads of 64
+LM_PREFILL_LEN = configs.SHAPES["prefill_32k"].seq_len  # 32768 tokens: 8 chunks of 4096
+LM_PREFILL_BATCH = 1  # the cell's 32 would need ~32x the score memory of one sample
+LM_CACHE_LEN = configs.SHAPES["decode_32k"].seq_len  # 32768 slots
+LM_DECODE_BATCH = 16  # the cell's 128 would need ~240 GB of k / v cache
+LM_PROMPT = 512
+LM_DECODE_STEPS = 64
+LM_CHECK_ROWS = 2  # decode rows held against a forward over the same tokens, bf16
+# max-abs difference over the max-abs of a forward's logits / a prefill's
+# cache: about 3x the readings on one H100 (1.59e-2 / 1.58e-2); a k / v write
+# one slot late reads 1.16 on the cache
+LM_BF16_TOL = {"logits": 0.05, "cache": 0.05}
+LM_IDENTITY_LEN = 64  # decode / prefill against forward, float32, B = 2
+LM_CHUNK_LEN = 8192  # chunked against full _sdpa, float32
+LM_CPU_LEN = 16  # the card against the CPU, float32, B = 1
+LM_CPU_TOL = 1e-4  # max-abs difference over the CPU logits' max-abs
+LM_OTHERS = ("smollm-360m", "minicpm-2b", "internvl2-2b", "musicgen-medium")
+LM_OTHER_LEN, LM_OTHER_BATCH, LM_OTHER_STEPS = 512, 2, 8
+
+
+def lm_arch(name: str) -> configs.ArchConfig:
+    """The config the phase runs (a CPU rehearsal swaps in smoke configs)."""
+    return configs.get(name)
+
+
+def lm_inputs(arch, g, b, s, *, prefix=True):
+    """A batch of ``s`` positions for ``arch`` on the card: token ids (a
+    vision arch's prefix of ``n_frontend_tokens`` patch embeddings counted
+    in ``s``, as the reference's ``input_specs``) or audio frame embeddings."""
+    adt = configs.torch_dtype(arch.activation_dtype)
+    nf = arch.n_frontend_tokens if arch.frontend == "vision" and prefix else 0
+    if arch.frontend == "audio":
+        return {"embeds": torch.randn((b, s, arch.d_model), generator=g, device=DEVICE).to(adt)}
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (b, s - nf), generator=g,
+                                     device=DEVICE)}
+    if nf:
+        batch["frontend_embeds"] = (torch.randn((b, nf, arch.d_model), generator=g,
+                                                device=DEVICE) * 0.02).to(adt)
+    return batch
+
+
+def padded_cache(model, cache, length):
+    """A zero cache of ``length`` slots holding ``cache`` in its first slots."""
+    k = cache["k"]
+    out = model.init_cache(k.shape[1], length, dtype=k.dtype, device=k.device)
+    for name in ("k", "v"):
+        out[name][:, :, :k.shape[2]] = cache[name]
+    return out
+
+
+def greedy(logits, arch):
+    """(B, 1) next tokens; a device flag that is true where one is a pad column."""
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    return tok, (tok >= arch.vocab_size).any()
+
+
+def next_inputs(arch, g, tok):
+    if arch.frontend == "audio":  # frame embeddings in: the next frame is random
+        return {"embeds": torch.randn((tok.shape[0], 1, arch.d_model), generator=g,
+                                      device=DEVICE).to(configs.torch_dtype(arch.activation_dtype))}
+    return {"tokens": tok}
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def phase_lm() -> dict:
+    """The LM substrate's serving path at qwen3-0.6b's full width and depth
+    (random bf16 weights from a seed) through ``make_prefill_step`` /
+    ``make_decode_step``: (a) a 32k prefill, (b) greedy decode against a
+    32k-slot cache, (c) the reference's identities in float32, (d) the card
+    against the CPU, (e) the other dense-stack configs at full width."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    zero_counts()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm: TF32 is on; the float32 identities need it off")
+    from repro_torch.models import LM
+    from repro_torch.nn import attention
+
+    out: dict = {}
+    arch = lm_arch(LM_ARCH)
+    model = LM(arch)
+    prefill, decode = train_steps.make_prefill_step(arch), train_steps.make_decode_step(arch)
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    params = model.init(g, device=DEVICE)
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    say(f"lm: {arch.name} {arch.n_layers} x {arch.d_model}, heads {arch.n_heads} / "
+        f"{arch.n_kv_heads} of {arch.resolved_head_dim}, vocab {arch.vocab_size} -> "
+        f"{model.vocab_padded}, {n_params / 1e6:.1f} M params ({arch.param_dtype})")
+
+    # ---- (a) prefill at the prefill_32k cell's length, B = 1
+    prefill(params, lm_inputs(arch, g, 1, 2 * attention.CHUNK_Q))  # warm: two chunks
+    chunks = []
+    chunked = attention._sdpa_chunked
+
+    def counted(q, *a, **kw):
+        chunks.append(q.shape[1])
+        return chunked(q, *a, **kw)
+
+    batch = lm_inputs(arch, g, LM_PREFILL_BATCH, LM_PREFILL_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention._sdpa_chunked = counted
+    try:
+        (logits, cache), wall = synced_wall(lambda: prefill(params, batch))
+    finally:
+        attention._sdpa_chunked = chunked
+    tok, pad_hit = greedy(logits, arch)
+    if not bool(torch.isfinite(logits[..., :arch.vocab_size]).all()) or bool(pad_hit):
+        raise AssertionError("lm prefill: logits not finite, or an argmax on a pad column")
+    want_chunks = [LM_PREFILL_LEN] * arch.n_layers if LM_PREFILL_LEN > attention.CHUNK_Q else []
+    if chunks != want_chunks:
+        raise AssertionError(f"lm prefill: the chunked path ran {chunks}")
+    score_gb = (LM_PREFILL_BATCH * arch.n_heads * min(LM_PREFILL_LEN, attention.CHUNK_Q)
+                * LM_PREFILL_LEN * 4 / 1e9)
+    cell_b = configs.SHAPES["prefill_32k"].global_batch
+    out["prefill"] = dict(seq=LM_PREFILL_LEN, batch=LM_PREFILL_BATCH, wall_s=wall,
+                          tokens_per_s=LM_PREFILL_BATCH * LM_PREFILL_LEN / wall,
+                          peak_gib=peak_gib(), chunk_scores_gb=score_gb,
+                          cache_gib=2 * cache["k"].numel() * cache["k"].element_size() / 2**30,
+                          cell_batch=cell_b)
+    say(f"lm prefill: {LM_PREFILL_LEN} tokens at B = {LM_PREFILL_BATCH} ({arch.param_dtype}, "
+        f"{LM_PREFILL_LEN // attention.CHUNK_Q} query chunks of {attention.CHUNK_Q} a layer) "
+        f"in {wall:.3f} s = {LM_PREFILL_BATCH * LM_PREFILL_LEN / wall:.0f} tokens/s, peak "
+        f"{peak_gib():.2f} GiB; reduced from the cell's B = {cell_b}: a chunk's float32 scores "
+        f"are {score_gb:.1f} GB a sample, {cell_b}x that at B = {cell_b}")
+    del logits, cache, batch
+
+    # ---- (b) greedy decode against the decode_32k cell's cache length
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompt = lm_inputs(arch, g, LM_DECODE_BATCH, LM_PROMPT)
+    (logits, pc), prompt_s = synced_wall(lambda: prefill(params, prompt))
+    cache = padded_cache(model, pc, LM_CACHE_LEN)
+    del pc
+    tok, pad_any = greedy(logits, arch)
+    # the position lives on the card (as a captured decode will need it):
+    # the step never reads it back
+    pos = torch.full((), LM_PROMPT, dtype=torch.int32, device=DEVICE)
+    walls, fed, got = [], [], []
+    for _ in range(LM_DECODE_STEPS):
+        step_in = dict(next_inputs(arch, g, tok), pos=pos)
+        (logits, cache), w = synced_wall(lambda: decode(params, cache, step_in))
+        walls.append(w)
+        fed.append(step_in["tokens"][:LM_CHECK_ROWS])
+        got.append(logits[:LM_CHECK_ROWS, -1, :arch.vocab_size].clone())
+        tok, pad_hit = greedy(logits, arch)
+        pad_any = pad_any | pad_hit
+        pos += 1
+    if bool(pad_any) or not bool(torch.isfinite(logits[..., :arch.vocab_size]).all()):
+        raise AssertionError("lm decode: an argmax on a pad column, or logits not finite")
+    # the timed path itself (bf16, a device pos, the 32k-slot cache written in
+    # place) against a bf16 forward and a prefill over the same prompt and fed
+    # tokens: the decode logits against the forward's, the cache's live slots
+    # against the prefill's
+    seq = torch.cat([prompt["tokens"][:LM_CHECK_ROWS]] + fed, dim=1)
+    want = model.forward(params, tokens=seq)[0][:, LM_PROMPT:, :arch.vocab_size]
+    _, want_c = prefill(params, {"tokens": seq})
+    bf16 = dict(logits=rel_max(torch.stack(got, dim=1), want),
+                cache=max(rel_max(cache[n][:, :LM_CHECK_ROWS, :seq.shape[1]], want_c[n])
+                          for n in ("k", "v")))
+    del seq, want, want_c, fed, got
+    if not all(bf16[n] <= LM_BF16_TOL[n] for n in bf16):
+        raise AssertionError(f"lm decode: the decode's logits / cache differ from a forward's "
+                             f"/ a prefill's over the same tokens by {bf16} of their max-abs, "
+                             f"tolerance {LM_BF16_TOL}")
+    kv_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    cell_b = configs.SHAPES["decode_32k"].global_batch
+    step_s = statistics.median(walls)
+    out["decode"] = dict(batch=LM_DECODE_BATCH, cache_len=LM_CACHE_LEN, prompt=LM_PROMPT,
+                         steps=LM_DECODE_STEPS, prompt_prefill_s=prompt_s, step_walls_s=walls,
+                         step_ms_median=step_s * 1e3, tokens_per_s=LM_DECODE_BATCH / step_s,
+                         peak_gib=peak_gib(), kv_cache_gb=kv_gb, cell_batch=cell_b,
+                         cell_kv_cache_gb=kv_gb * cell_b / LM_DECODE_BATCH,
+                         vs_forward_rel=bf16, vs_forward_tol=LM_BF16_TOL)
+    say(f"lm decode: B = {LM_DECODE_BATCH}, a {LM_PROMPT}-token prompt ({prompt_s:.3f} s), the "
+        f"cache zero-padded to {LM_CACHE_LEN} slots, {LM_DECODE_STEPS} greedy steps: median "
+        f"step {step_s * 1e3:.2f} ms = {LM_DECODE_BATCH / step_s:.0f} tokens/s, peak "
+        f"{peak_gib():.2f} GiB; reduced from the cell's B = {cell_b}: k / v cache {kv_gb:.1f} GB "
+        f"at B = {LM_DECODE_BATCH}, {kv_gb * cell_b / LM_DECODE_BATCH:.0f} GB at B = {cell_b}; "
+        f"rows 0-{LM_CHECK_ROWS - 1}'s decode logits == a bf16 forward's over the same tokens "
+        f"to {bf16['logits']:.2e} of their max-abs, its cache == a prefill's to "
+        f"{bf16['cache']:.2e} (tolerances {LM_BF16_TOL})")
+    del logits, cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the reference's identities at full width, float32
+    arch32 = dataclasses.replace(arch, param_dtype="float32", activation_dtype="float32")
+    m32 = LM(arch32)
+    p32 = m32.init(torch.Generator(device=DEVICE).manual_seed(29), device=DEVICE)
+    toks = torch.randint(0, arch.vocab_size, (2, LM_IDENTITY_LEN), generator=g, device=DEVICE)
+    full, _ = m32.forward(p32, tokens=toks)
+    c32 = m32.init_cache(2, LM_IDENTITY_LEN, device=DEVICE)
+    dec, dpos = [], torch.zeros((), dtype=torch.int32, device=DEVICE)  # as the timed path's
+    for i in range(LM_IDENTITY_LEN):
+        lg, c32 = m32.decode_step(p32, c32, tokens=toks[:, i:i + 1], pos=dpos)
+        dec.append(lg)
+        dpos += 1
+    dec_rel = rel_max(torch.cat(dec, dim=1), full)
+    last, _ = m32.prefill(p32, tokens=toks)
+    # assert_allclose(rtol=atol=2e-4): |last - full| <= 2e-4 (1 + |full|)
+    pre_ratio = float(((last[:, 0] - full[:, -1]).abs() / (2e-4 * (1 + full[:, -1].abs()))).max())
+    q = torch.randn((1, LM_CHUNK_LEN, arch.n_heads, arch.resolved_head_dim), generator=g,
+                    device=DEVICE)
+    k = torch.randn((1, LM_CHUNK_LEN, arch.n_kv_heads, arch.resolved_head_dim), generator=g,
+                    device=DEVICE)
+    v = torch.randn(k.shape, generator=g, device=DEVICE)
+    pos = torch.arange(LM_CHUNK_LEN, device=DEVICE)
+    sc = 1.0 / math.sqrt(arch.resolved_head_dim)
+    ch = attention._sdpa_chunked(q, k, v, qpos=pos, kpos=pos, window=None, scale=sc)
+    fl = attention._sdpa(q, k, v, mask=(pos[:, None] >= pos[None, :])[None, None, None],
+                         scale=sc)
+    ch_ratio = float(((ch - fl).abs() / (1e-5 * (1 + fl.abs()))).max())
+    del q, k, v, ch, fl
+    ident = dict(decode_vs_forward_rel=dec_rel, prefill_vs_forward_tol_share=pre_ratio,
+                 chunked_vs_full_tol_share=ch_ratio)
+    if not (dec_rel < 2e-3 and pre_ratio <= 1 and ch_ratio <= 1):
+        raise AssertionError(f"lm identities: {ident}")
+    out["identities"] = ident
+    say(f"lm identities (float32, full width): decode (the position on the card) == forward "
+        f"over {LM_IDENTITY_LEN} tokens at B = 2, max rel {dec_rel:.2e} (< 2e-3); prefill's last logits == forward's at "
+        f"{pre_ratio:.3f} of rtol = atol = 2e-4; chunked == full _sdpa at S = {LM_CHUNK_LEN} at "
+        f"{ch_ratio:.3f} of rtol = atol = 1e-5")
+
+    # ---- (d) the card against the CPU: the same float32 weights and tokens
+    toks = toks[:1, :LM_CPU_LEN]
+    on_card, _ = m32.forward(p32, tokens=toks)
+    p_cpu = tree.map_tree(lambda a: a.cpu(), p32)
+    (on_cpu, _), cpu_s = synced_wall(lambda: m32.forward(p_cpu, tokens=toks.cpu()))
+    real = slice(0, arch.vocab_size)
+    cpu_rel = rel_max(on_card[..., real].cpu(), on_cpu[..., real])
+    out["card_vs_cpu"] = dict(seq=LM_CPU_LEN, rel=cpu_rel, tol=LM_CPU_TOL, cpu_forward_s=cpu_s)
+    if not cpu_rel <= LM_CPU_TOL:
+        raise AssertionError(f"lm card vs CPU: {cpu_rel} > {LM_CPU_TOL}")
+    say(f"lm card vs CPU: float32 forward, B = 1, S = {LM_CPU_LEN}, TF32 off: max-abs "
+        f"difference {cpu_rel:.2e} of the CPU logits' max-abs (tolerance {LM_CPU_TOL})")
+    del p32, p_cpu, c32, full, dec, on_card, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the other dense-stack configs at full width, bf16
+    out["others"] = {}
+    for name in LM_OTHERS:
+        a = lm_arch(name)
+        mo = LM(a)
+        pre, dec_step = train_steps.make_prefill_step(a), train_steps.make_decode_step(a)
+        torch.cuda.reset_peak_memory_stats()
+        po = mo.init(torch.Generator(device=DEVICE).manual_seed(31), device=DEVICE)
+        batch = lm_inputs(a, g, LM_OTHER_BATCH, LM_OTHER_LEN)
+        (lg, c), pre_s = synced_wall(lambda: pre(po, batch))
+        c = padded_cache(mo, c, LM_OTHER_LEN + LM_OTHER_STEPS)
+        tok, pad_any = greedy(lg, a)
+        ok = torch.isfinite(lg[..., :a.vocab_size]).all()
+        dwalls = []
+        for i in range(LM_OTHER_STEPS):
+            step_in = dict(next_inputs(a, g, tok), pos=LM_OTHER_LEN + i)
+            (lg, c), w = synced_wall(lambda: dec_step(po, c, step_in))
+            dwalls.append(w)
+            tok, pad_hit = greedy(lg, a)
+            pad_any, ok = pad_any | pad_hit, ok & torch.isfinite(lg[..., :a.vocab_size]).all()
+        if not bool(ok) or bool(pad_any):
+            raise AssertionError(f"lm {name}: logits not finite, or an argmax on a pad column")
+        row = dict(layers=a.n_layers, d_model=a.d_model, heads=[a.n_heads, a.n_kv_heads],
+                   vocab=[a.vocab_size, mo.vocab_padded], frontend=a.frontend,
+                   params_m=sum(p.numel() for p in tree.leaves(po)) / 1e6,
+                   prefill_s=pre_s, decode_ms_median=statistics.median(dwalls) * 1e3,
+                   peak_gib=peak_gib())
+        out["others"][name] = row
+        say(f"lm {name}: {json.dumps(row)}")
+        del po, c, lg, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["launches"] = launch_counts()  # the LM path reaches no TPU kernel: all 0
+    if any(out["launches"].values()):
+        raise AssertionError(f"lm: a Ditto kernel launched: {out['launches']}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -1623,6 +1968,7 @@ def main() -> int:
     meshing = phase_mesh(params, sched)
     del params, x_T, labels, diff_run  # the training phase needs the card's memory
     training = phase_train()
+    lm = phase_lm()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -1648,6 +1994,7 @@ def main() -> int:
     say("scheduler: " + json.dumps(scheduling))
     say("mesh: " + json.dumps(meshing))
     say("training: " + json.dumps(training))
+    say("lm: " + json.dumps(lm))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -4,8 +4,9 @@ The input is the JAX package's param tree as nested dicts of numpy arrays
 (the caller unwraps ``Param`` leaves and converts arrays with
 ``numpy.asarray``; this module imports neither JAX nor the JAX package),
 with per-block params stacked on a leading layer axis as
-``src/repro/nn/dit.py`` ``init`` makes them. The port keeps that layout,
-so the conversion is leaf by leaf.
+``src/repro/nn/dit.py`` ``init`` and ``src/repro/models/lm.py``
+``LM.init`` make them. The port keeps that layout, so the conversion is
+leaf by leaf.
 """
 from __future__ import annotations
 

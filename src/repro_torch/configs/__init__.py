@@ -1,4 +1,14 @@
-from .base import ArchConfig, torch_dtype
-from .registry import REGISTRY, get, names
+from .base import SHAPES, ArchConfig, ShapeCell, cell_applicable, torch_dtype
+from .registry import ASSIGNED, REGISTRY, get, names
 
-__all__ = ["ArchConfig", "torch_dtype", "REGISTRY", "get", "names"]
+__all__ = [
+    "SHAPES",
+    "ArchConfig",
+    "ShapeCell",
+    "cell_applicable",
+    "torch_dtype",
+    "ASSIGNED",
+    "REGISTRY",
+    "get",
+    "names",
+]

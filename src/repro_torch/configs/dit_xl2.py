@@ -14,11 +14,14 @@ CONFIG = ArchConfig(
     d_model=1152,
     n_heads=16,
     n_kv_heads=16,
-    head_dim=72,  # MLP ratio 4 (d_ff 4608), fixed by the DiT
+    head_dim=72,
+    d_ff=4608,  # mlp_ratio 4
+    vocab_size=0,
     patch=2,
     in_channels=4,
     input_size=32,
-    n_classes=1000,  # paper Table I samples with DDIM, 250 steps
+    n_classes=1000,
+    sample_steps=250,  # paper Table I: DDIM 250 steps
     norm="layernorm",
     act="gelu",
     source="hf/arXiv:2212.09748 (DiT-XL/2); paper Table I",

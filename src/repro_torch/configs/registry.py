@@ -1,17 +1,42 @@
-"""Registry of the ported architectures (``--arch <id>``).
+"""Registry of all selectable architectures (``--arch <id>``).
 
-Mirror of ``src/repro/configs/registry.py``. Only DiT-XL/2, the paper's
-own architecture, is registered: the ten LM-family configs come with the
-LM substrate (ROADMAP.md, queue 1).
+Mirror of ``src/repro/configs/registry.py``: the ten assigned LM-family
+configs and DiT-XL/2, the paper's own, in the reference's order.
 """
 from __future__ import annotations
 
-from . import dit_xl2
+from . import (
+    arctic_480b,
+    command_r_35b,
+    dit_xl2,
+    internvl2_2b,
+    minicpm_2b,
+    musicgen_medium,
+    qwen2_moe_a2_7b,
+    qwen3_0_6b,
+    smollm_360m,
+    xlstm_125m,
+    zamba2_7b,
+)
 from .base import ArchConfig
 
-_ALL = [dit_xl2.CONFIG]
+_ALL = [
+    minicpm_2b.CONFIG,
+    smollm_360m.CONFIG,
+    qwen3_0_6b.CONFIG,
+    command_r_35b.CONFIG,
+    xlstm_125m.CONFIG,
+    qwen2_moe_a2_7b.CONFIG,
+    arctic_480b.CONFIG,
+    internvl2_2b.CONFIG,
+    zamba2_7b.CONFIG,
+    musicgen_medium.CONFIG,
+    dit_xl2.CONFIG,  # the paper's own architecture
+]
 
 REGISTRY: dict[str, ArchConfig] = {c.name: c for c in _ALL}
+
+ASSIGNED = [c.name for c in _ALL if c.name != "dit-xl2"]  # the 10 assigned archs
 
 
 def get(name: str) -> ArchConfig:

@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from ...distributed.sharding import batch_sharding
-from ...kernels.common import DEFAULT_LOW_BITS, LOW_BIT_MAX, resolve_device
+from ...kernels.diff_encode import diff_encode
+from ...kernels.common import DEFAULT_LOW_BITS, LOW_BIT_MAX, pad2, resolve_device
 from ...nn import core as nncore
 from ...nn import dit as dit_mod
 from . import compiled as compiled_mod
@@ -203,15 +204,27 @@ class CompiledDittoDiT:
         weights = None if cache is None else cache.weights_for(params, engine)
         self.ceng = CompiledDittoEngine(engine, plan=self.plan, weights=weights)
         self.state = self.ceng.init_state()
-        if cache is not None:
-            self._step = cache.step_for(cfg, self.ceng.modes, self.plan, bucket=bucket)
-        else:
-            self._step = make_step_fn(cfg, self.ceng.modes, self.plan)
+        self.cache, self.bucket = cache, bucket
+        self._step = self.step_for(self.ceng.modes, self.plan)
 
-    def run(self, latents, t, labels=None) -> tuple[torch.Tensor, dict]:
-        """One step: ``(eps, aux)``, the state carried, nothing recorded."""
-        out, self.state, aux = self._step(self.ceng.params, self.params, self.state,
-                                          latents, t, labels)
+    def step_for(self, modes: dict[str, str], plan: DittoPlan):
+        """The step of (``modes``, ``plan``) over this runner's rows: its
+        cache's runner of that key, or an uncached step."""
+        if self.cache is not None:
+            return self.cache.step_for(self.cfg, modes, plan, bucket=self.bucket)
+        return make_step_fn(self.cfg, modes, plan)
+
+    def snapshot(self):
+        """The state as it is now (a copy where a cache's arena holds it):
+        the watchdog's rollback point."""
+        snap = getattr(self.state, "snapshot", None)
+        return self.state if snap is None else snap()
+
+    def run(self, latents, t, labels=None, step=None) -> tuple[torch.Tensor, dict]:
+        """One step: ``(eps, aux)``, the state carried, nothing recorded.
+        ``step`` (from :meth:`step_for`) runs in place of the runner's own."""
+        out, self.state, aux = (step or self._step)(self.ceng.params, self.params, self.state,
+                                                    latents, t, labels)
         return out, aux
 
     def __call__(self, latents, t, labels=None):
@@ -298,16 +311,44 @@ def _boundary_counts(states: list[dict], names: list[str]) -> dict[str, list]:
     return out
 
 
-def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, str]) -> dict:
+def _straddling(states: list[dict], modes: dict[str, str], block: int) -> list[str]:
+    """The diff-mode linear layers whose rows on one device are not whole
+    class tiles (the conditioning ``mod`` layer, M = the batch): there the
+    devices' tiles are not the unsplit step's."""
+    return [n for n, m in modes.items() if m == "diff" and "x_prev" in states[0][n]
+            and states[0][n]["x_prev"].shape[0] % block]
+
+
+def _whole_batch_tile_hists(prev: dict, states: list[dict], block: int, device) -> dict:
+    """The unsplit step's tile histogram of each layer of ``prev``: the
+    class tiles of the whole batch's Δ (the groups' ``x_prev`` after the
+    step against ``prev``, theirs before it, rows concatenated), classified
+    by the ``diff_encode`` kernel (its plain version on the CPU); one host
+    copy for all layers."""
+    hists = []
+    for n, old in prev.items():
+        x_t = torch.cat([st[n]["x_prev"].to(device) for st in states])
+        x_prev = torch.cat(old)
+        classes = diff_encode(pad2(x_t, block, block), pad2(x_prev, block, block),
+                              bm=block, bk=block)
+        hists.append(torch.stack([(classes == c).sum() for c in range(3)]))
+    flat = torch.stack(hists).to(torch.float64).cpu()
+    return dict(zip(prev, flat))
+
+
+def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, str], *,
+                  prev: dict | None = None, block: int = 128, device=None) -> dict:
     """The aux of one compiled step over the whole batch from its row
     groups' (``parts_aux`` and the groups' states after the step, in row
     order): element counts add up, and the row deltas of the spatial
     statistics (``cls_spatial``, and ``cls_diff`` of spatial-mode layers)
     gain the deltas across each group boundary, so every count equals the
-    unsplit step's. ``tile_hist`` sums the groups' measured tiles: where a
-    layer's rows on one device are not whole 128-row tiles (the conditioning
-    ``mod`` layer, M = the batch), the devices classified tiles of their own
-    rows. Values are (3,) float64 count tensors on the host."""
+    unsplit step's. ``tile_hist`` sums the groups' measured tiles where a
+    layer's rows on one device are whole ``block``-row tiles; the layers of
+    ``prev`` (:func:`_straddling`, each with its groups' ``x_prev`` from
+    before the step, on ``device``) are classified again over the whole
+    batch (:func:`_whole_batch_tile_hists`). Values are (3,) float64 count
+    tensors on the host."""
     host = _host_counts(parts_aux)
     names: list[str] = []
     for h in host:
@@ -327,6 +368,9 @@ def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, st
             if k == "cls_spatial" or (k == "cls_diff" and modes[n] == "spatial"):
                 c = [a + b for a, b in zip(c, boundary[n])]
             m[k] = torch.tensor(c, dtype=torch.float64)
+    if prev:
+        for n, hist in _whole_batch_tile_hists(prev, states, block, device).items():
+            merged[n]["tile_hist"] = hist
     return merged
 
 
@@ -366,21 +410,45 @@ class SplitDittoDiT:
         for p, st in zip(self.parts, states):
             p.state = st
 
-    def __call__(self, latents, t, labels=None):
+    def step_for(self, modes: dict[str, str], plan: DittoPlan) -> list:
+        """One step of (``modes``, ``plan``) a row group, each through its
+        group's cache at its group's rows."""
+        return [p.step_for(modes, plan) for p in self.parts]
+
+    def snapshot(self) -> list:
+        return [p.snapshot() for p in self.parts]
+
+    def run(self, latents, t, labels=None, step=None, modes=None) -> tuple[torch.Tensor, dict]:
+        """One step over the row groups: ``(eps, aux)``, the eps rows
+        concatenated on the engine's device and the groups' counts merged
+        (:func:`merge_row_aux`, under ``modes``, default the frozen ones);
+        ``step`` (from :meth:`step_for`) runs in place of the groups' own."""
         from ...serve.mesh import place_dispatch  # core.ditto does not import serve
 
         axis = self.plan.mesh_axis
         xs, ls = place_dispatch(latents, labels, self.devices, axis)
         ts, _ = place_dispatch(t, None, self.devices, axis)
+        steps = step or [None] * len(self.parts)
+        modes = modes or self.parts[0].ceng.modes
+        block, dev = self.plan.block, self.engine.device
+        prev = {}
+        if self.plan.collect_stats:  # a copy: a cache's arena is updated in place
+            prev = {n: [st[n]["x_prev"].to(dev, copy=True) for st in self.state]
+                    for n in _straddling(self.state, modes, block)}
         outs, auxes = [], []
-        for part, xg, tg, lg in zip(self.parts, xs, ts, ls):
-            out, aux = part.run(xg, tg, lg)
+        for part, st, xg, tg, lg in zip(self.parts, steps, xs, ts, ls):
+            out, aux = part.run(xg, tg, lg, st)
             outs.append(out)
             auxes.append(aux)
+        aux = (merge_row_aux(auxes, self.state, modes, prev=prev, block=block, device=dev)
+               if self.plan.collect_stats else {})
+        return torch.cat([o.to(dev) for o in outs]), aux
+
+    def __call__(self, latents, t, labels=None):
+        out, aux = self.run(latents, t, labels)
         if self.plan.collect_stats:
-            self.engine.record_compiled_step(
-                merge_row_aux(auxes, self.state, self.parts[0].ceng.modes))
-        return torch.cat([o.to(self.engine.device) for o in outs])
+            self.engine.record_compiled_step(aux)
+        return out
 
 
 def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
@@ -422,8 +490,12 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
     compiled steps (:class:`SplitDittoDiT`): every batch the denoiser sees
     must divide into ``len(mesh)`` equal row groups (``serve_records`` runs
     a batch that does not unsplit). The eager calibration steps run over
-    the whole batch on ``device``. The watchdog does not run on a split
-    dispatch (``ValueError``).
+    the whole batch on ``device``. Under the watchdog a trigger on any
+    group's rows (a non-finite output; a full-tile fraction of the step's
+    merged counts, which are the unsplit step's, at or above
+    ``reanchor_full_frac``) is one for the whole dispatch: every group
+    rolls back and re-anchors at the same step, so the samples and
+    ``watchdog_events`` equal the unsplit dispatch's.
     """
     plan = EAGER_PLAN if plan is None else plan
     if not isinstance(plan, (DittoPlan, PlanSchedule)):
@@ -441,8 +513,6 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
         if torch.device(groups[0].device) != dev:
             raise ValueError(f"the first row group lives on {groups[0].device}, the "
                              f"engine on {dev}")
-        if plan.watchdog:
-            raise ValueError("plan.watchdog does not run on a split dispatch (mesh dp > 1)")
     schedule = plan.normalized() if isinstance(plan, PlanSchedule) else None
     watchdog = plan.watchdog
     reanchor_frac = plan.reanchor_full_frac
@@ -458,16 +528,16 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
         re-anchor plan, refreshing the temporal anchors."""
         cur = box["runner"]
         rplan = cur.plan.replace(fused=False, low_bits=DEFAULT_LOW_BITS)
-        act_modes = {name: "act" for name in cur.ceng.modes}
-        rsig = rplan.cache_sig()
+        parts = cur.parts if groups is not None else [cur]
+        act_modes = {name: "act" for name in parts[0].ceng.modes}
+        rsig = (rplan.cache_sig(), tuple(p.bucket for p in parts))
         if box.get("reanchor_sig") != rsig:
-            if runner_cache is not None:
-                box["reanchor_fn"] = runner_cache.step_for(cfg, act_modes, rplan, bucket=bucket)
-            else:
-                box["reanchor_fn"] = make_step_fn(cfg, act_modes, rplan)
+            box["reanchor_fn"] = cur.step_for(act_modes, rplan)
             box["reanchor_sig"] = rsig
-        out, cur.state, aux = box["reanchor_fn"](cur.ceng.params, params, cur.state,
-                                                 x, t, labels)
+        if groups is None:
+            out, aux = cur.run(x, t, labels, box["reanchor_fn"])
+        else:
+            out, aux = cur.run(x, t, labels, box["reanchor_fn"], act_modes)
         if rplan.collect_stats:
             engine.record_compiled_step(aux, modes=act_modes, reanchor=True)
         engine.watchdog_events.append({"step": engine.step_idx, "trigger": trigger, **extra})
@@ -485,8 +555,7 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
             return reanchor_step(x_in, t, labels, "saturation", {"full_frac": due})
         cur = box["runner"]
         # a runner cache's graphs update their state in place: keep a copy
-        snapshot = getattr(cur.state, "snapshot", None)
-        pre_state = cur.state if snapshot is None else snapshot()
+        pre_state = cur.snapshot()
         n0 = len(engine.records)
         out = cur(x_in, t, labels)
         if fault is not None and fault.kind in ("poison_nan", "poison_inf"):

@@ -1,8 +1,11 @@
-"""Train and serve step builders, diffusion (DiT) family.
+"""Train and serve step builders: the diffusion (DiT) family, and the
+LM's serving steps.
 
-Mirror of the DiT parts of ``src/repro/launch/steps.py``: ``make_optimizer``,
+Mirror of ``src/repro/launch/steps.py``: ``make_optimizer``,
 ``make_dit_model``, the diffusion branch of ``make_train_step``,
-``init_state`` and ``make_denoise_step`` (float and W8A8). PyTorch runs
+``init_state`` and ``make_denoise_step`` (float and W8A8), and the LM's
+``make_prefill_step`` / ``make_decode_step`` (the dense stack,
+``models/lm.py``). PyTorch runs
 eagerly, so a step is a plain function of (state, batch); autograd gives
 the backward, and the optimizer updates the state's tensors in place.
 
@@ -13,9 +16,9 @@ cast up by ``nn/core.py:dense``) and the loss run in float32: DiT-XL/2's
 "bfloat16" config stores bfloat16 and computes in float32. TF32 stays off
 (PyTorch's default for matmuls).
 
-The LM branch (``cross_entropy``, the LM train / prefill / decode steps)
-comes with the LM substrate, and ``param_axes`` with ``distributed/``
-(ROADMAP.md, queue 1).
+LM training (``cross_entropy``, the LM branch of ``make_train_step`` and
+``init_state``) comes with the LM substrate's training slice, and
+``param_axes`` with ``distributed/`` (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ..configs.base import ArchConfig, torch_dtype
 from ..core import diffusion
 from ..data.synthetic import generator
 from ..kernels.common import resolve_device
+from ..models.lm import LM
 from ..nn import dit as dit_mod
 from ..optim import AdamW, make_schedule
 
@@ -71,8 +75,9 @@ def make_dit_model(arch: ArchConfig) -> dit_mod.DiTCfg:
 
 def _diffusion_only(arch: ArchConfig, what: str) -> None:
     if arch.family != "diffusion":
-        raise NotImplementedError(f"{what} for the {arch.family} family is not ported: the "
-                                  f"LM substrate comes later (ROADMAP.md, queue 1)")
+        raise NotImplementedError(f"{what} for the {arch.family} family is not ported: LM "
+                                  f"training comes with the LM substrate's training slice "
+                                  f"(ROADMAP.md, queue 1, item 8a)")
 
 
 class DiffusionTrainStep:
@@ -132,6 +137,34 @@ class DiffusionTrainStep:
 def make_train_step(arch: ArchConfig, opt: AdamW) -> DiffusionTrainStep:
     """(state, batch) -> (state, metrics); state = {params, opt, rng}."""
     return DiffusionTrainStep(arch, opt)
+
+
+def make_prefill_step(arch: ArchConfig) -> Callable:
+    """``(params, batch) -> (last-position logits, cache)``: the prompt's
+    forward, its k / v kept (cache length = prompt length). ``batch`` holds
+    ``tokens`` (B, S), or ``embeds`` (B, S, D) for an audio arch, and for a
+    vision arch optionally ``frontend_embeds`` (B, n_frontend_tokens, D);
+    :meth:`LM.prefill` takes it as keywords."""
+    model = LM(arch)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, **batch)
+
+    return prefill_step
+
+
+def make_decode_step(arch: ArchConfig) -> Callable:
+    """``(params, cache, batch) -> (logits, cache)``: one decode step at
+    ``batch["pos"]`` (an int or a 0-d integer tensor) over ``tokens`` (B, 1),
+    or ``embeds`` (B, 1, D) for an audio arch; :meth:`LM.decode_step` takes
+    ``batch`` as keywords. The step's k / v are written into ``cache``,
+    which is returned."""
+    model = LM(arch)
+
+    def decode_step(params, cache, batch):
+        return model.decode_step(params, cache, **batch)
+
+    return decode_step
 
 
 def make_denoise_step(arch: ArchConfig, *, int8: bool = False) -> Callable:

@@ -1,1 +1,4 @@
-"""Model-level serving steps: the W8A8 DiT (``dit_int8``)."""
+"""Model-level code: the decoder LM (``lm``) and the W8A8 DiT (``dit_int8``)."""
+from .lm import LM
+
+__all__ = ["LM"]

@@ -1,9 +1,24 @@
-"""Bidirectional multi-head attention, as the DiT blocks use it.
+"""Grouped-query attention with optional qk-norm, RoPE and KV cache.
 
-Mirror of the part of ``src/repro/nn/attention.py`` that ``nn/dit.py``
-reaches: projections with bias, RoPE, full (non-causal) attention, no KV
-cache. The causal, windowed, qk-norm and cached paths belong to the LM
-substrate, a later slice (ROADMAP.md, queue 1).
+Mirror of ``src/repro/nn/attention.py``.
+
+Shapes
+------
+x:        (B, S, D)
+q:        (B, S, H, hd)     k/v: (B, S, KV, hd)
+cache k/v:(B, S_max, KV, hd)   (decode: write at ``cache_pos``)
+
+Every product is a ``torch.einsum`` / matmul, as the reference computes
+it: the score einsum is rounded to the input dtype and then cast to
+float32, masked with ``finfo(float32).min`` and soft-maxed in float32.
+The DiT's bidirectional path (``causal=False``, no window, no cache) takes
+no mask at all, as before.
+
+One divergence, on purpose: the cached path writes the new k/v *into*
+the given cache (``index_copy_`` at ``cache_pos``) and returns that cache,
+where the reference returns an updated copy; at a 32k-slot decode cache
+a copy a step would be the cache's size again. A caller must not read a
+cache after passing it in expecting the old contents.
 """
 from __future__ import annotations
 
@@ -26,37 +41,132 @@ class AttentionCfg:
     rope_theta: float = 10000.0
     bias: bool = False
     causal: bool = True
+    # sliding window (tokens); None = full attention
     window: int | None = None
 
 
 def init(gen: torch.Generator, cfg: AttentionCfg, *, lead: tuple = (),
          dtype=torch.float32) -> dict:
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    return {
-        "wq": core.dense_init(gen, cfg.d_model, qd, bias=cfg.bias, lead=lead, dtype=dtype),
-        "wk": core.dense_init(gen, cfg.d_model, kvd, bias=cfg.bias, lead=lead, dtype=dtype),
-        "wv": core.dense_init(gen, cfg.d_model, kvd, bias=cfg.bias, lead=lead, dtype=dtype),
-        "wo": core.dense_init(gen, qd, cfg.d_model, bias=cfg.bias, lead=lead, dtype=dtype),
+    kw = dict(bias=cfg.bias, lead=lead, dtype=dtype)
+    p = {
+        "wq": core.dense_init(gen, cfg.d_model, qd, **kw),
+        "wk": core.dense_init(gen, cfg.d_model, kvd, **kw),
+        "wv": core.dense_init(gen, cfg.d_model, kvd, **kw),
+        "wo": core.dense_init(gen, qd, cfg.d_model, **kw),
     }
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = {"scale": torch.ones(lead + (cfg.head_dim,), dtype=dtype,
+                                           device=gen.device)}
+    return p
 
 
-def apply(params: dict, cfg: AttentionCfg, x: torch.Tensor, *,
-          positions: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D), full bidirectional attention."""
-    if cfg.causal or cfg.window is not None or cfg.qk_norm:
-        raise NotImplementedError(
-            "only the DiT's bidirectional attention is ported; causal, windowed "
-            "and qk-norm attention come with the LM substrate (ROADMAP.md, queue 1)")
+def _headnorm(scale, x, eps=1e-6):
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * core.val(scale).to(torch.float32)).to(dt)
+
+
+def _sdpa(q, k, v, *, mask, scale):
+    """q: (B,Sq,H,hd) k/v: (B,Sk,KV,hd). GQA via head grouping. ``mask``
+    broadcasts against (B, KV, G, Sq, Sk); None attends everywhere."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q = q.reshape(b, sq, kvh, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(torch.float32) * scale
+    if mask is not None:
+        logits = logits.masked_fill_(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    return out.reshape(b, sq, h, hd)
+
+
+# query-chunk size above which the full (Sq, Sk) score matrix is never
+# materialized (prefill at 32k would need O(S^2) memory otherwise)
+CHUNK_Q = 4096
+
+
+def _causal_mask(qpos, kpos, window):
+    """(Sq, Sk) bool: key at or before the query (and within ``window``)."""
+    mask = qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    return mask
+
+
+def _sdpa_chunked(q, k, v, *, qpos, kpos, window, scale, chunk=CHUNK_Q):
+    """Query-chunked attention: peak memory O(chunk * Sk) instead of O(Sq*Sk).
+
+    Equivalent math (softmax is per-query-row); one chunk's scores are
+    live at a time."""
+    b, sq, h, hd = q.shape
+    out = torch.empty((b, sq, h, hd), dtype=v.dtype, device=q.device)
+    for lo in range(0, sq, chunk):
+        mask = _causal_mask(qpos[lo:lo + chunk], kpos, window)
+        out[:, lo:lo + chunk] = _sdpa(q[:, lo:lo + chunk], k, v, mask=mask[None, None, None],
+                                      scale=scale)
+    return out
+
+
+def apply(params: dict, cfg: AttentionCfg, x: torch.Tensor, *, positions: torch.Tensor,
+          cache: dict | None = None, cache_pos=None):
+    """Returns (y, new_cache). ``cache`` is None for training / prefill
+    (causal, or bidirectional with ``causal=False``).
+
+    Decode: x is (B, S, D), cache holds (B, S_max, KV, hd); the new k/v are
+    written in place at ``cache_pos`` (a Python int or a 0-d integer
+    tensor) and attention runs over positions <= the query's.
+    """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = core.dense(params["wq"], x).reshape(b, s, h, hd)
     k = core.dense(params["wk"], x).reshape(b, s, kvh, hd)
     v = core.dense(params["wv"], x).reshape(b, s, kvh, hd)
+    if cfg.qk_norm:
+        q = _headnorm(params["q_norm"]["scale"], q)
+        k = _headnorm(params["k_norm"]["scale"], k)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
-    g = h // kvh
-    q = q.reshape(b, s, kvh, g, hd)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).to(torch.float32) * (1.0 / math.sqrt(hd))
-    probs = torch.softmax(logits, dim=-1)
-    y = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v).reshape(b, s, h * hd)
-    return core.dense(params["wo"], y)
+    scale = 1.0 / math.sqrt(hd)
+
+    if cache is None:
+        qp = positions if positions.dim() else positions[None]
+        if cfg.causal and qp.dim() == 1 and s > CHUNK_Q and s % CHUNK_Q == 0:
+            y = _sdpa_chunked(q, k, v, qpos=qp, kpos=qp, window=cfg.window, scale=scale)
+        elif not cfg.causal and cfg.window is None:  # bidirectional (DiT blocks)
+            y = _sdpa(q, k, v, mask=None, scale=scale)
+        else:
+            if cfg.causal:
+                mask = qp[..., :, None] >= qp[..., None, :]  # (S,S) or (B,S,S)
+            else:
+                mask = torch.ones(qp.shape[-1:] * 2, dtype=torch.bool, device=x.device)
+            if cfg.window is not None:
+                mask = mask & (qp[..., :, None] - qp[..., None, :] < cfg.window)
+            # (S, S) -> (1, 1, 1, Sq, Sk); (B, S, S) -> (B, 1, 1, Sq, Sk)
+            mask = mask[None, None, None] if mask.dim() == 2 else mask[:, None, None]
+            y = _sdpa(q, k, v, mask=mask, scale=scale)
+        new_cache = {"k": k, "v": v}
+    else:
+        ck, cv = cache["k"], cache["v"]
+        s_max = ck.shape[1]
+        pos0 = 0 if cache_pos is None else cache_pos
+        if not torch.is_tensor(pos0) or pos0.device.type == "cpu":
+            # a device position is not read back: there the write's index
+            # check fails on the device instead
+            if not 0 <= int(pos0) <= s_max - s:
+                raise ValueError(f"cache_pos {int(pos0)} + {s} new positions past the cache "
+                                 f"length {s_max}")
+        qpos = torch.arange(s, dtype=torch.int32, device=x.device) + pos0
+        slots = qpos.to(torch.int64)
+        ck.index_copy_(1, slots, k.to(ck.dtype))
+        cv.index_copy_(1, slots, v.to(cv.dtype))
+        kpos = torch.arange(s_max, dtype=torch.int32, device=x.device)
+        mask = _causal_mask(qpos, kpos, cfg.window)[None, None, None]  # (1,1,1,Sq,Sk)
+        y = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask, scale=scale)
+        new_cache = {"k": ck, "v": cv}
+
+    y = y.reshape(b, s, h * hd)
+    return core.dense(params["wo"], y), new_cache

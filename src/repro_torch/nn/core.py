@@ -1,6 +1,8 @@
 """Minimal functional NN substrate.
 
-Mirror of the parts of ``src/repro/nn/core.py`` that the DiT reaches.
+Mirror of the parts of ``src/repro/nn/core.py`` that the DiT and the LM
+stack reach (``segmented_scan``, the recurrent layers' scan, comes with
+``nn/xlstm.py``; conv and group norm have no caller in the port).
 Params are nested dicts of tensors. :class:`Param` (an array tagged with
 logical sharding axes in the reference) is kept so that apply functions
 accept a tagged tree as well as a plain one — ``val`` normalizes — but
@@ -102,10 +104,50 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Norms (float32 inside, the input's dtype out)
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * val(params["scale"]).to(torch.float32)).to(dtype)
+
+
+def layernorm_init(dim: int, *, bias: bool = True, dtype=torch.float32, device=None) -> dict:
+    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+    if bias:
+        p["b"] = torch.zeros((dim,), dtype=dtype, device=device)
+    return p
+
+
+def layernorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with the population variance."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps) * val(params["scale"]).to(torch.float32)
+    if "b" in params:
+        y = y + val(params["b"]).to(torch.float32)
+    return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Activations (the reference's jax.nn.gelu is the tanh form)
 # ---------------------------------------------------------------------------
 
 ACTIVATIONS: dict[str, Callable] = {
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "silu": F.silu,
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "identity": lambda x: x,
 }

@@ -129,7 +129,7 @@ def block_apply(bp: dict, cfg: DiTCfg, x: torch.Tensor, c: torch.Tensor) -> torc
     sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     h = _modulate(_ln(x), sh_a, sc_a)
-    a = attn.apply(bp["attn"], _attn_cfg(cfg), h, positions=positions)
+    a, _ = attn.apply(bp["attn"], _attn_cfg(cfg), h, positions=positions)
     x = x + g_a[:, None, :] * a
     h = _modulate(_ln(x), sh_m, sc_m)
     return x + g_m[:, None, :] * mlp.apply(bp["mlp"], _mlp_cfg(cfg), h)

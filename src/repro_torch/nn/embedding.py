@@ -1,0 +1,28 @@
+"""Token embedding + LM head. Mirror of ``src/repro/nn/embedding.py``."""
+from __future__ import annotations
+
+import torch
+
+from . import core
+from .core import val
+
+
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, *, dtype=torch.float32) -> dict:
+    return {"table": core.normal_init(gen, (vocab, d_model), stddev=0.02, dtype=dtype)}
+
+
+def embed(params: dict, tokens: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
+    y = val(params["table"])[tokens]
+    return y * torch.full((), scale, dtype=y.dtype, device=y.device) if scale != 1.0 else y
+
+
+def head_init(gen: torch.Generator, d_model: int, vocab: int, *, dtype=torch.float32) -> dict:
+    return {"w": core.normal_init(gen, (d_model, vocab), stddev=0.02, dtype=dtype)}
+
+
+def logits(params: dict | None, x: torch.Tensor, *,
+           tied_table: torch.Tensor | None = None) -> torch.Tensor:
+    """``x @ W`` of the head, or ``x @ table.T`` of a tied embedding."""
+    if tied_table is not None:
+        return x @ val(tied_table).to(x.dtype).T
+    return x @ val(params["w"]).to(x.dtype)

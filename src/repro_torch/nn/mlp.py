@@ -1,27 +1,36 @@
-"""Feed-forward blocks: the ungated MLP the DiT uses. Mirror of the
-ungated part of ``src/repro/nn/mlp.py``; the gated SwiGLU / GeGLU blocks
-belong to the LM substrate, a later slice (ROADMAP.md, queue 1)."""
+"""Feed-forward blocks: the gated SwiGLU / GeGLU blocks of the LM stack
+(``wg``, ``wu``, ``wd``) and the ungated MLP (``wi``, ``wo``) the DiT and
+musicgen use. Mirror of ``src/repro/nn/mlp.py``."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from . import core
+
+GATED = ("swiglu", "geglu")
 
 
 @dataclasses.dataclass(frozen=True)
 class MlpCfg:
     d_model: int
     d_ff: int
-    act: str = "gelu"  # a key of nn.core.ACTIVATIONS
+    act: str = "gelu"  # swiglu | geglu | a key of nn.core.ACTIVATIONS
     bias: bool = False
 
 
 def init(gen: torch.Generator, cfg: MlpCfg, *, lead: tuple = (), dtype=torch.float32) -> dict:
-    if cfg.act not in core.ACTIVATIONS:
+    if cfg.act not in GATED and cfg.act not in core.ACTIVATIONS:
         raise NotImplementedError(f"MLP activation {cfg.act!r} is not ported")
     kw = dict(bias=cfg.bias, lead=lead, dtype=dtype)
+    if cfg.act in GATED:
+        return {
+            "wg": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
+            "wu": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
+            "wd": core.dense_init(gen, cfg.d_ff, cfg.d_model, **kw),
+        }
     return {
         "wi": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
         "wo": core.dense_init(gen, cfg.d_ff, cfg.d_model, **kw),
@@ -29,5 +38,9 @@ def init(gen: torch.Generator, cfg: MlpCfg, *, lead: tuple = (), dtype=torch.flo
 
 
 def apply(params: dict, cfg: MlpCfg, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act in GATED:
+        gate = F.silu if cfg.act == "swiglu" else core.ACTIVATIONS["gelu"]
+        return core.dense(params["wd"], gate(core.dense(params["wg"], x))
+                          * core.dense(params["wu"], x))
     act = core.ACTIVATIONS[cfg.act]
     return core.dense(params["wo"], act(core.dense(params["wi"], x)))

@@ -15,8 +15,8 @@ Three layers:
   reference's solo ``ServeSession``), stealing under a skewed async
   stream, one-shard fault recovery down the ladder.
 * The port's own: a dp=2 split dispatch equals the unsharded one (modes,
-  sample bits, records by (layer, step): class counts and every float
-  exactly); each kernel wrapper enters its operand's device (the CUDA calls
+  sample bits, records by (layer, step): class counts, tile histograms
+  and every float exactly), under the watchdog too; each kernel wrapper enters its operand's device (the CUDA calls
   faked); a ticket split over two shards assembles in row order; the mesh
   never invents devices.
 """
@@ -502,7 +502,7 @@ def _records_by_key(recs):
     return {(r["layer"], r["step"]): r for r in recs}
 
 
-def _assert_records_equal(got, want, skip=()):
+def _assert_records_equal(got, want):
     """By (layer, step): ints and class counts exactly, floats within 1e-12
     relative (they come out equal)."""
     g, w = _records_by_key(got), _records_by_key(want)
@@ -510,8 +510,6 @@ def _assert_records_equal(got, want, skip=()):
     for key in w:
         assert g[key].keys() == w[key].keys(), key
         for f, v in w[key].items():
-            if f in skip:
-                continue
             u = g[key][f]
             if isinstance(v, float) or (isinstance(v, tuple) and v and isinstance(v[0], float)):
                 np.testing.assert_allclose(u, v, rtol=1e-12, atol=0, err_msg=f"{key} {f}")
@@ -526,10 +524,10 @@ def test_dp2_split_dispatch_equals_unsharded(policy):
     split compiled steps give the same sample bits and the same records by
     (layer, step) — with statistics on, every class fraction and priced
     float equal to the unsharded record (the spatial deltas across the
-    split counted in), and the tile histograms equal wherever a device's
-    rows are whole 128-row tiles. The conditioning ``mod`` layer (M = the
-    batch) is the exception: there the devices classify the tiles of their
-    own rows, so its histogram equals the two halves served alone."""
+    split counted in), and every tile histogram: the conditioning ``mod``
+    layer (M = the batch), whose rows on one device are not whole 128-row
+    tiles, is classified again over the whole batch's Δ, so its histogram
+    is the unsplit one, not the two halves'."""
     cfg = dit.DiTCfg(**SPLIT_KW)
     g = torch.Generator().manual_seed(5)
     params = dit.init(g, cfg, device="cpu")
@@ -547,21 +545,17 @@ def test_dp2_split_dispatch_equals_unsharded(policy):
     assert torch.equal(s2, s1)
     assert {c.capture_counts and next(iter(c.capture_counts)).bucket for c in
             (groups[0].cache, groups[1].cache)} == {2}
-    mod = {k for k, r in _records_by_key(r1).items() if r["layer"].endswith(".mod")}
-    _assert_records_equal(r2, r1, skip=("tile_hist", "tile_fracs", "bops_tile"))
-    g2, g1 = _records_by_key(r2), _records_by_key(r1)
-    for key in g1:
-        if key not in mod:
-            assert g2[key].get("tile_hist") == g1[key].get("tile_hist"), key
-    hists = [k for k in mod if "tile_hist" in g1[k]]
+    _assert_records_equal(r2, r1)
+    g1 = _records_by_key(r1)
+    hists = [k for k, r in g1.items() if r["layer"].endswith(".mod") and "tile_hist" in r]
     assert bool(hists) == (policy == "diff")
-    if hists:  # the halves alone, under the same (diff) modes and per-sample scales
+    if hists:  # the halves alone classify tiles of their own rows: not the unsplit counts
         halves = [_records_by_key(harness.serve_records(
             params, cfg, sched, x[lo:hi], lab[lo:hi], plan, device="cpu")[0])
             for lo, hi in ((0, 2), (2, 4))]
-        for key in hists:
-            assert g2[key]["tile_hist"] == tuple(
-                a + b for a, b in zip(halves[0][key]["tile_hist"], halves[1][key]["tile_hist"]))
+        assert any(g1[key]["tile_hist"] != tuple(
+            a + b for a, b in zip(halves[0][key]["tile_hist"], halves[1][key]["tile_hist"]))
+            for key in hists)
     # a schedule's segment swap hands each device's state on
     swap = PlanSchedule(plan, [(0, 3, {}), (3, 4, dict(low_bits=4, fused=True))])
     _, s4, _ = harness.serve_records(params, cfg, sched, x, lab,
@@ -575,14 +569,75 @@ def test_dp2_split_dispatch_equals_unsharded(policy):
                                                  device="cpu")[1])
 
 
+def test_dp2_split_records_exact_when_no_layer_is_whole_tiles():
+    """At 16 tokens a sample every linear layer's rows on one device (32)
+    are less than a 128-row tile: each diff layer's histogram is classified
+    again over the whole batch, and every record equals the unsplit one."""
+    cfg = dit.DiTCfg(**dict(SPLIT_KW, input_size=8))
+    g = torch.Generator().manual_seed(6)
+    params = dit.init(g, cfg, device="cpu")
+    params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
+    sched = diffusion.cosine_schedule(100)
+    x, lab = torch.randn((4, 8, 8, 4), generator=g), torch.arange(4) % 4
+    plan = DittoPlan(steps=4, policy="diff", max_batch=4, collect_stats=True)
+    groups = tuple(RowGroup(CPU, params, None) for _ in range(2))
+    r2, s2, _ = harness.serve_records(params, cfg, sched, x, lab, plan.replace(mesh_devices=2),
+                                      bucket=4, mesh=groups)
+    r1, s1, _ = harness.serve_records(params, cfg, sched, x, lab, plan, device="cpu")
+    assert torch.equal(s2, s1)
+    linear = [r for r in r1 if "tile_hist" in r and r["kind"] == "dense"]
+    steps = {r["step"] for r in r1 if r.get("compiled")}
+    assert len(linear) == len(steps) * (7 * cfg.n_layers + 1) > 0  # every layer is diff
+    _assert_records_equal(r2, r1)
+
+
+@pytest.mark.parametrize("fault,kw", [
+    (("denoise.step", 0, "drift", 64.0), dict(reanchor_full_frac=0.9)),
+    (("denoise.step", 1, "poison_nan", 0.0), dict(reanchor_full_frac=None))],
+    ids=["drift", "poison_nan"])
+def test_dp2_split_watchdog_equals_unsharded(fault, kw):
+    """The watchdog on a dp=2 split: a drift at the first compiled step
+    (every group saturates; the next step re-anchors) and a poisoned output
+    at the second (non-finite: every group rolls back and re-anchors) give
+    the unsplit dispatch's sample bits, ``watchdog_events`` (step, trigger,
+    ``full_frac``) and records by (layer, step), exactly."""
+    cfg = dit.DiTCfg(**SPLIT_KW)
+    g = torch.Generator().manual_seed(5)
+    params = dit.init(g, cfg, device="cpu")
+    params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)
+    sched = diffusion.cosine_schedule(100)
+    x = torch.randn((4, 32, 32, 4), generator=g)
+    lab = torch.arange(4) % 4
+    plan = DittoPlan(steps=4, policy="diff", max_batch=4, collect_stats=True, watchdog=True,
+                     **kw)
+    groups = tuple(RowGroup(CPU, params, CompiledRunnerCache()) for _ in range(2))
+    with inject(FaultInjector([Fault(*fault)])) as inj:
+        r2, s2, e2 = harness.serve_records(params, cfg, sched, x, lab,
+                                           plan.replace(mesh_devices=2), bucket=4, mesh=groups)
+    assert len(inj.fired) == 1
+    with inject(FaultInjector([Fault(*fault)])):
+        r1, s1, e1 = harness.serve_records(params, cfg, sched, x, lab, plan, bucket=4,
+                                           runner_cache=CompiledRunnerCache(), device="cpu")
+    trigger = "saturation" if fault[2] == "drift" else "nonfinite"
+    assert [e["trigger"] for e in e1.watchdog_events] == [trigger]
+    assert e2.watchdog_events == e1.watchdog_events
+    assert torch.isfinite(s1).all() and torch.equal(s2, s1)
+    assert any(r.get("reanchor") for r in r1)
+    _assert_records_equal(r2, r1)
+
+
 def test_split_session_checks_its_plans(model):
     params, _, sched, req = model
     sess = ServeSession(params, CFG, sched, PLAN.replace(mesh_devices=2), mesh=(CPU, CPU))
     assert len(sess.caches) == 2 and sess.device == CPU
     with pytest.raises(ValueError, match="mesh_devices=2"):
         sess.serve(*req(2, 0), plan=PLAN)
-    with pytest.raises(ValueError, match="watchdog"):
-        sess.serve(*req(2, 0), plan=PLAN.replace(mesh_devices=2, watchdog=True))
+    # the watchdog runs on a split dispatch: the same rows as the solo session
+    watched = PLAN.replace(watchdog=True)
+    got = sess.serve(*req(2, 0), plan=watched.replace(mesh_devices=2))
+    want = ServeSession(params, CFG, sched, watched, device="cpu").serve(*req(2, 0))
+    assert torch.equal(got.sample, want.sample)
+    assert got.chunks[0].engine.watchdog_events == want.chunks[0].engine.watchdog_events
 
 
 def test_cache_refuses_a_dispatch_on_another_device(model):

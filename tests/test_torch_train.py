@@ -90,10 +90,10 @@ def test_configs_match_reference():
         assert dataclasses.asdict(port.smoke()) == kept(port, ref.smoke())
         assert port.n_params() == ref.n_params()
         assert port.resolved_head_dim == ref.resolved_head_dim
-    assert configs.names() == ["dit-xl2"]
+    assert configs.names() == rconfigs.names()
     assert configs.torch_dtype("bfloat16") is torch.bfloat16
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get("smollm-360m")
+        configs.get("gpt-2")
     with pytest.raises(ValueError, match="not a torch dtype"):
         configs.torch_dtype("nope")
     arch, parch = smoke()
@@ -104,10 +104,10 @@ def test_configs_match_reference():
                 dict(head_dim=32)):
         with pytest.raises(ValueError, match="the DiT builds"):
             steps.make_dit_model(dataclasses.replace(parch, **bad))
-    lm = dataclasses.replace(parch, family="dense")
-    for call in (lm.n_params, lm.smoke):
-        with pytest.raises(NotImplementedError, match="dense family"):
-            call()
+    # a dense config's count and smoke variant are the reference's
+    lm, rlm = dataclasses.replace(parch, family="dense"), dataclasses.replace(arch, family="dense")
+    assert lm.n_params() == rlm.n_params()
+    assert dataclasses.asdict(lm.smoke()) == dataclasses.asdict(rlm.smoke())
 
 
 # ---------------------------------------------------------------- schedules
