@@ -4,6 +4,8 @@ PyTorch/CUDA port spends its time.
     python3 benchmarks/torch_step_profile.py [--policy act diff diff-fused defo] [--steps 8] [--short 4]
     python3 benchmarks/torch_step_profile.py --lm qwen3-0.6b [--batch 16] [--cache 32768]
         [--prompt 512] [--steps 8] [--prefill 32768]
+    python3 benchmarks/torch_step_profile.py --lm qwen3-0.6b --train-seq 4096 [--batch 4]
+        [--layers N] [--steps 3]
 
 Serves DiT-XL/2 at B = 2 (random weights from a seed, adaLN ``mod`` weights
 refilled N(0, 0.02), as chip_smoke.py does) through
@@ -60,6 +62,13 @@ depth (random weights from a seed, the config's dtypes), through
 - ``prefill``: one ``--prefill``-token prompt at B = 1, the same figures
   over one profiled call after an unprofiled one (``--prefill 0`` skips it).
 
+With ``--train-seq S`` the ``--lm`` mode profiles train steps instead
+(``launch.steps.init_state`` / ``make_train_step``, the config's dtypes,
+remat and grad_accum, at ``--batch`` rows of S tokens from ``lm_batch``,
+depth cut to ``--layers`` when given): the median wall of ``--steps``
+steps after a warm one, then the same figures over ``--steps`` profiled
+steps.
+
 Each mode prints its rows as JSON lines and the card's name and power
 limit. Needs a CUDA card.
 """
@@ -84,6 +93,7 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan  # noqa: E402
+from repro_torch.data.synthetic import DataCfg, lm_batch  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.nn import dit  # noqa: E402
@@ -293,6 +303,32 @@ def lm_profile(name: str, batch: int, cache_len: int, prompt: int, steps: int,
     return out
 
 
+def lm_train_profile(name: str, batch: int, seq: int, layers: int, steps: int) -> dict:
+    """The ``--train-seq`` mode's row: train steps of ``name``."""
+    import dataclasses
+
+    import chip_smoke as smoke  # synced_wall
+
+    arch = configs.get(name)
+    if layers:
+        arch = dataclasses.replace(arch, n_layers=layers)
+    opt = lm_steps.make_optimizer(arch, total=2 * steps + 1)
+    state = {"s": lm_steps.init_state(arch, 0, opt, device="cuda")}
+    train = lm_steps.make_train_step(arch, opt)
+    data = lm_batch(arch, DataCfg(seed=0, batch=batch, seq_len=seq), 0, device="cuda")
+
+    def step():
+        state["s"], _ = train(state["s"], data)
+
+    step()  # warm
+    walls = [smoke.synced_wall(step)[1] * 1e3 for _ in range(steps)]
+    wall_ms = statistics.median(walls)
+    return dict(arch=arch.name, layers=arch.n_layers, batch=batch, seq=seq,
+                grad_accum=train.effective_accum(batch), step_ms_median=wall_ms,
+                step_walls_ms=walls, tokens_per_s=batch * seq / (wall_ms / 1e3),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, **lm_figures(step, steps))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--policy", nargs="+", default=["act", "diff", "diff-fused"],
@@ -305,6 +341,8 @@ def main() -> int:
     ap.add_argument("--cache", type=int, default=32768, help="--lm: the decode cache's slots")
     ap.add_argument("--prompt", type=int, default=512, help="--lm: the decode prompt")
     ap.add_argument("--prefill", type=int, default=32768, help="--lm: the prefill's tokens")
+    ap.add_argument("--train-seq", type=int, default=0, help="--lm: profile train steps instead")
+    ap.add_argument("--layers", type=int, default=0, help="--train-seq: cut the depth to this")
     args = ap.parse_args()
     if not args.lm and not 2 <= args.short < args.steps:
         ap.error("need 2 <= --short < --steps: steps 0-1 run eager")
@@ -314,6 +352,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(f"{torch.cuda.get_device_name(0)}, torch {torch.__version__}; {smi.stdout.strip()}")
+    if args.lm and args.train_seq:
+        row = lm_train_profile(args.lm, args.batch, args.train_seq, args.layers, args.steps)
+        print("lm_train_profile: " + json.dumps(row), flush=True)
+        return 0
     if args.lm:
         row = lm_profile(args.lm, args.batch, args.cache, args.prompt, args.steps, args.prefill)
         print("lm_profile: " + json.dumps(row), flush=True)

@@ -150,7 +150,33 @@ Phases (any failure raises and the script exits non-zero):
              internvl2-2b and musicgen-medium at full width, a 512-position
              prefill at B = 2 and 8 decode steps each, finite. It prints
              walls, tokens/s and peak memory; no Ditto kernel launches.
-9. times   — each kernel on the inputs the slice gave it (the last call at
+9. lm_train — LM training at qwen3-0.6b's full width and depth (bf16)
+             through ``init_state`` / ``make_train_step``: (a) 12 steps at
+             ``train_4k``'s 4096 tokens and the largest batch of 4, 2, 1
+             that fits (the cell's 256 cut; a refused batch is printed),
+             finite losses whose last 3 average below the first; the step
+             wall, tokens/s, peak memory and the matmul FLOP (formula in
+             ``lm_train_flops``) against the bf16 dense peak; (b) at depth
+             2, the loss and gradients with remat on and off, within 1e-3
+             relative (and whether bit-identical), both peaks; (c) at depth
+             2, ``TrainDriver`` 4 + a restart + 4 steps against 8 straight,
+             every state tensor ``torch.equal``; (d) the float32 smoke step
+             on the card within 1e-4 of the CPU's (loss, grad_norm).
+10. moe    — qwen2-moe-a2.7b (24 x 2048, 60 experts top 4 + a shared
+             expert, 14.3 B params, random bf16 weights from a seed): (e) a
+             4096-token prefill at B = 2, then a 512-token prompt and 32
+             greedy decode steps at B = 16 (the position on the card),
+             finite logits, no argmax on a pad column; walls, tokens/s,
+             peak memory and each phase's share of dropped (token, choice)
+             slots (decode's one group of 16 tokens has one slot an expert:
+             the reference's rule, mirrored); (f) training at full width
+             and depth 4 (B = 4, S = 4096, the config's grad_accum 4,
+             float32 accumulation), 4 steps, finite loss and aux > 0; (g)
+             at smoke size in float32 with capacity_factor 8, for
+             qwen2-moe and arctic-480b: decode against forward within 2e-3
+             relative, the card's forward and aux within 1e-4 of the CPU's.
+             No Ditto kernel launches in either phase.
+11. times  — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -160,7 +186,8 @@ Phases (any failure raises and the script exits non-zero):
              K-major weight; ``library_ms`` is the faster).
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
-``training: {...}`` and ``lm: {...}`` lines,
+``training: {...}``, ``lm: {...}``, ``lm_train: {...}`` and ``moe: {...}``
+lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1838,6 +1865,360 @@ def phase_lm() -> dict:
     return out
 
 
+# --------------------------------------------------------------- LM train
+LMT_ARCH = "qwen3-0.6b"  # full width and depth, bf16 params, tied padded vocab
+LMT_SEQ = configs.SHAPES["train_4k"].seq_len  # 4096
+LMT_BATCHES = (4, 2, 1)  # the cell's 256 cut: the largest of these that fits the card
+LMT_STEPS = 12
+LMT_LR = 1e-3
+LMT_LAYERS = 2  # (b) remat on / off and (c) the restart: full width, depth 2
+LMT_REMAT_TOL = 1e-3  # relative, bf16 (the two runs compute the same ops)
+LMT_RESUME_BATCH, LMT_RESUME_SEQ, LMT_RESUME_STEPS = 2, 1024, 8
+LMT_CPU_TOL = 1e-4  # (d): the card's smoke step against the CPU's, float32
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+
+
+def lm_train_flops(arch: configs.ArchConfig, vocab_padded: int, batch: int, seq: int) -> int:
+    """Matmul FLOP of one LM train step: 3 x the forward's (the backward runs
+    two products for each forward product; remat's recomputed forward is
+    not counted). Forward: 2 B S [L (d qd + 2 d kvd + qd d + 3 d f) + d V]
+    (the projections, the gated MLP and the padded head) + 4 L B S^2 H hd
+    (QK^T and PV over the whole masked square, as computed)."""
+    d, f, L = arch.d_model, arch.d_ff, arch.n_layers
+    hd = arch.resolved_head_dim
+    qd, kvd = arch.n_heads * hd, arch.n_kv_heads * hd
+    per_token = L * (2 * d * qd + 2 * d * kvd + 3 * d * f) + d * vocab_padded
+    return 3 * (2 * batch * seq * per_token + 4 * L * batch * seq * seq * arch.n_heads * hd)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_train() -> dict:
+    """LM training at qwen3-0.6b's full width and depth through
+    ``init_state`` / ``make_train_step``: (a) steps at ``train_4k``'s
+    sequence length, (b) remat on against off, (c) a TrainDriver restart,
+    bit for bit, (d) the card's float32 smoke step against the CPU's."""
+    free_card()
+    t_phase = time.perf_counter()
+    zero_counts()
+    from repro_torch.models import LM
+
+    out: dict = {}
+    arch = lm_arch(LMT_ARCH)
+    vpad = LM(arch).vocab_padded
+    opt = train_steps.make_optimizer(arch, base_lr=LMT_LR, total=LMT_STEPS,
+                                     warmup=train_steps.driver_warmup(LMT_STEPS))
+    train = train_steps.make_train_step(arch, opt)
+
+    # ---- (a) train_4k's sequence length, the largest batch that fits
+    refused = []
+    for batch in LMT_BATCHES:
+        torch.cuda.reset_peak_memory_stats()
+        state = None
+        try:
+            (state, init_s) = synced_wall(lambda: train_steps.init_state(arch, 0, opt,
+                                                                         device=DEVICE))
+            dc = DataCfg(seed=0, batch=batch, seq_len=LMT_SEQ)
+            losses, auxes, walls = [], [], []
+            for step in range(LMT_STEPS):
+                def one():
+                    nonlocal state
+                    state, m = train(state, batch_for(arch, dc, step, device=DEVICE))
+                    return torch.stack([m["loss"], m["aux"]]).tolist()
+                (loss, aux), wall = synced_wall(one)
+                losses.append(loss)
+                auxes.append(aux)
+                walls.append(wall)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            refused.append({"batch": batch, "error": str(e).splitlines()[0][:160]})
+        state = None  # the error (and its frames) are gone here: free their memory
+        free_card()
+    else:
+        raise AssertionError(f"lm_train: no batch of {LMT_BATCHES} fits: {refused}")
+    peak = peak_gib()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm_train: a loss is not finite: {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"lm_train: the loss did not fall: {losses}")
+    step_s = statistics.median(walls[1:])
+    flops = lm_train_flops(arch, vpad, batch, LMT_SEQ)
+    n_params = sum(p.numel() for p in tree.leaves(state["params"]))
+    cell_b = configs.SHAPES["train_4k"].global_batch
+    out["train"] = dict(arch=arch.name, layers=arch.n_layers, d_model=arch.d_model,
+                        params_m=n_params / 1e6, seq=LMT_SEQ, batch=batch, cell_batch=cell_b,
+                        refused=refused, init_s=init_s, losses=losses, aux=auxes,
+                        step_walls_s=walls, step_wall_s_median=step_s,
+                        tokens_per_s=batch * LMT_SEQ / step_s, peak_gib=peak,
+                        flop_per_step=flops, tflops=flops / step_s / 1e12,
+                        bf16_peak_share=flops / step_s / BF16_FLOPS_PER_S)
+    say(f"lm_train: {arch.name} {arch.n_layers} x {arch.d_model}, {n_params / 1e6:.1f} M "
+        f"params ({arch.param_dtype}), B = {batch} (the cell's {cell_b} cut; refused: "
+        f"{[r['batch'] for r in refused]}), S = {LMT_SEQ}, {LMT_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (last 3 mean {statistics.mean(losses[-3:]):.4f}); "
+        f"median step {step_s * 1e3:.1f} ms (the first {walls[0] * 1e3:.1f}), "
+        f"{batch * LMT_SEQ / step_s:.0f} tokens/s; peak {peak:.2f} GiB; "
+        f"{flops / 1e12:.1f} TFLOP a step = {100 * flops / step_s / BF16_FLOPS_PER_S:.1f} % of "
+        f"the bf16 dense peak")
+    del state
+    free_card()
+
+    # ---- (b) remat on against off at depth LMT_LAYERS, bf16
+    arch2 = dataclasses.replace(arch, n_layers=LMT_LAYERS)
+    params = LM(arch2).init(torch.Generator(device=DEVICE).manual_seed(1), device=DEVICE)
+    rb = batch_for(arch2, DataCfg(seed=1, batch=batch, seq_len=LMT_SEQ), 0, device=DEVICE)
+    runs = {}
+    for remat in (True, False):
+        a = dataclasses.replace(arch2, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        ce, _, grads = train_steps.make_train_step(a, opt).loss_and_grads(params, rb)
+        torch.cuda.synchronize()
+        runs[remat] = (ce, tree.leaves(grads), peak_gib() - base)
+    (ce1, g1, peak1), (ce0, g0, peak0) = runs[True], runs[False]
+    loss_rel = abs(float(ce1) - float(ce0)) / abs(float(ce0))
+    grad_rel = max(rel_max(a, b) for a, b in zip(g1, g0) if b.abs().max() > 0)
+    exact = torch.equal(ce1, ce0) and all(torch.equal(a, b) for a, b in zip(g1, g0))
+    out["remat"] = dict(layers=LMT_LAYERS, batch=batch, seq=LMT_SEQ, loss_rel=loss_rel,
+                        grad_rel=grad_rel, bit_identical=exact, tol=LMT_REMAT_TOL,
+                        peak_gib_over_held=dict(remat=peak1, no_remat=peak0))
+    if not (loss_rel <= LMT_REMAT_TOL and grad_rel <= LMT_REMAT_TOL):
+        raise AssertionError(f"lm_train remat: {out['remat']}")
+    say(f"lm_train remat: {json.dumps(out['remat'])}")
+    del params, rb, runs, g1, g0, ce1, ce0
+    free_card()
+
+    # ---- (c) a restart through TrainDriver at depth LMT_LAYERS, bit for bit
+    kw = dict(batch=LMT_RESUME_BATCH, seq=LMT_RESUME_SEQ, total_steps=LMT_RESUME_STEPS,
+              ckpt_every=0, device=DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        straight = TrainDriver(arch2, workdir=os.path.join(tmp, "a"), **kw)
+        (s1, _), t_straight = synced_wall(straight.run)
+        first = TrainDriver(arch2, workdir=os.path.join(tmp, "b"), **kw)
+        _, t_first = synced_wall(lambda: first.run(steps=LMT_RESUME_STEPS // 2))
+        resumed = TrainDriver(arch2, workdir=os.path.join(tmp, "b"), **kw)
+        (s3, step), t_resumed = synced_wall(resumed.run)
+    want = [m["loss"] for m in straight.metrics_log]
+    got = [m["loss"] for m in resumed.metrics_log]
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(s1), tree.leaves(s3)))
+    out["resume"] = dict(layers=LMT_LAYERS, batch=LMT_RESUME_BATCH, seq=LMT_RESUME_SEQ,
+                         losses_straight=want, losses_resumed=got, state_bit_identical=same,
+                         walls_s=dict(straight=t_straight, first=t_first, resumed=t_resumed))
+    if step != LMT_RESUME_STEPS or got != want[LMT_RESUME_STEPS // 2:] or not same:
+        raise AssertionError(f"lm_train resume: not bit for bit: {out['resume']}")
+    say(f"lm_train resume: {json.dumps(out['resume'])}")
+    del s1, s3, straight, first, resumed
+    free_card()
+
+    # ---- (d) the card's float32 smoke step against the CPU's
+    small = configs.get(LMT_ARCH).smoke()
+    sopt = train_steps.make_optimizer(small, total=10)
+    sb = batch_for(small, DataCfg(seed=2, batch=2, seq_len=16), 0, device="cpu")
+    metrics = {}
+    for dev in ("cpu", DEVICE):
+        st = train_steps.init_state(small, 0, sopt, device="cpu")
+        st = tree.map_tree(lambda a: a.to(dev), st)
+        st["rng"] = st["rng"].cpu()
+        _, m = train_steps.make_train_step(small, sopt)(
+            st, {k: v.to(dev) for k, v in sb.items()})
+        metrics[dev] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    cpu_rel = {k: abs(metrics[DEVICE][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+               for k in ("loss", "grad_norm")}
+    out["card_vs_cpu"] = dict(arch=small.name + " smoke", rel=cpu_rel, tol=LMT_CPU_TOL,
+                              metrics=metrics)
+    if not all(v <= LMT_CPU_TOL for v in cpu_rel.values()):
+        raise AssertionError(f"lm_train card vs CPU: {out['card_vs_cpu']}")
+    say(f"lm_train card vs CPU: {json.dumps(out['card_vs_cpu'])}")
+
+    out["launches"] = launch_counts()  # the LM train path reaches no TPU kernel
+    if any(out["launches"].values()):
+        raise AssertionError(f"lm_train: a Ditto kernel launched: {out['launches']}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# --------------------------------------------------------------------- MoE
+MOE_ARCH = "qwen2-moe-a2.7b"  # 24 x 2048, 60 experts top 4 + a shared expert
+MOE_PREFILL_LEN, MOE_PREFILL_BATCH = 4096, 2
+MOE_DECODE_BATCH, MOE_PROMPT, MOE_DECODE_STEPS = 16, 512, 32
+MOE_TRAIN_LAYERS = 4  # full width, depth cut: bf16 params and grads, float32 moments
+MOE_TRAIN_BATCH = 4  # grad_accum 4 of the config: microbatches of 1
+MOE_TRAIN_SEQ = configs.SHAPES["train_4k"].seq_len
+MOE_TRAIN_STEPS = 4
+MOE_SMOKE = ("qwen2-moe-a2.7b", "arctic-480b")  # (g), float32, capacity_factor 8
+MOE_DEC_TOL = 2e-3  # tests/test_models.py::test_decode_matches_forward
+MOE_CPU_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def counting_drops(tally: list):
+    """While installed, every MoE layer's routing appends (kept, total)
+    (token, choice) slots to ``tally``, as device scalars."""
+    from repro_torch.nn import moe
+
+    route = moe.route
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        tally.append((r[3].sum(), r[3].numel()))
+        return r
+
+    moe.route = counted
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def drop_share(tally: list) -> float:
+    kept = int(torch.stack([k for k, _ in tally]).sum())
+    return 1.0 - kept / sum(n for _, n in tally)
+
+
+def phase_moe() -> dict:
+    """The MoE family: (e) qwen2-moe-a2.7b served at full width and depth
+    (a 4096-token prefill at B = 2; 32 greedy decode steps at B = 16 after a
+    512-token prompt), (f) trained at full width and depth 4 (B = 4, S =
+    4096, grad_accum 4, float32 accumulation), (g) the reference's decode
+    identity and the card against the CPU at smoke size."""
+    free_card()
+    t_phase = time.perf_counter()
+    zero_counts()
+    from repro_torch.models import LM
+    from repro_torch.nn import moe
+
+    out: dict = {}
+    arch = lm_arch(MOE_ARCH)
+    model = LM(arch)
+    g = torch.Generator(device=DEVICE).manual_seed(37)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced_wall(lambda: model.init(g, device=DEVICE))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    out["params"] = dict(arch=arch.name, layers=arch.n_layers, d_model=arch.d_model,
+                         experts=[arch.n_experts, arch.top_k], params_b=n_params / 1e9,
+                         weights_gib=sum(p.numel() * p.element_size()
+                                         for p in tree.leaves(params)) / 2**30,
+                         init_s=init_s, init_peak_gib=peak_gib())
+    say(f"moe: {json.dumps(out['params'])}")
+    prefill, decode = train_steps.make_prefill_step(arch), train_steps.make_decode_step(arch)
+
+    # ---- (e) serving: a long prefill, then greedy decode at B = 16
+    prefill(params, lm_inputs(arch, g, 1, 128))  # warm
+    batch = lm_inputs(arch, g, MOE_PREFILL_BATCH, MOE_PREFILL_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tally: list = []
+    with counting_drops(tally):
+        (logits, cache), wall = synced_wall(lambda: prefill(params, batch))
+    tok, pad_hit = greedy(logits, arch)
+    if not bool(torch.isfinite(logits[..., :arch.vocab_size]).all()) or bool(pad_hit):
+        raise AssertionError("moe prefill: logits not finite, or an argmax on a pad column")
+    cap = moe.capacity(model.moe_cfg, MOE_PREFILL_LEN)
+    out["prefill"] = dict(seq=MOE_PREFILL_LEN, batch=MOE_PREFILL_BATCH, wall_s=wall,
+                          tokens_per_s=MOE_PREFILL_BATCH * MOE_PREFILL_LEN / wall,
+                          peak_gib=peak_gib(), groups=MOE_PREFILL_BATCH, capacity=cap,
+                          dropped_share=drop_share(tally))
+    say(f"moe prefill: {json.dumps(out['prefill'])}")
+    del logits, cache, batch
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    prompt = lm_inputs(arch, g, MOE_DECODE_BATCH, MOE_PROMPT)
+    (logits, pc), prompt_s = synced_wall(lambda: prefill(params, prompt))
+    cache = padded_cache(model, pc, MOE_PROMPT + MOE_DECODE_STEPS)
+    del pc
+    tok, pad_any = greedy(logits, arch)
+    pos = torch.full((), MOE_PROMPT, dtype=torch.int32, device=DEVICE)
+    walls, tally = [], []
+    ok = torch.isfinite(logits[..., :arch.vocab_size]).all()
+    with counting_drops(tally):
+        for _ in range(MOE_DECODE_STEPS):
+            step_in = {"tokens": tok, "pos": pos}
+            (logits, cache), w = synced_wall(lambda: decode(params, cache, step_in))
+            walls.append(w)
+            tok, pad_hit = greedy(logits, arch)
+            pad_any, ok = pad_any | pad_hit, ok & torch.isfinite(logits[..., :arch.vocab_size]).all()
+            pos += 1
+    if bool(pad_any) or not bool(ok):
+        raise AssertionError("moe decode: an argmax on a pad column, or logits not finite")
+    step_s = statistics.median(walls)
+    out["decode"] = dict(batch=MOE_DECODE_BATCH, prompt=MOE_PROMPT, steps=MOE_DECODE_STEPS,
+                         prompt_prefill_s=prompt_s, step_walls_s=walls,
+                         step_ms_median=step_s * 1e3, tokens_per_s=MOE_DECODE_BATCH / step_s,
+                         peak_gib=peak_gib(), groups=1,
+                         capacity=moe.capacity(model.moe_cfg, MOE_DECODE_BATCH),
+                         dropped_share=drop_share(tally))
+    say(f"moe decode: {json.dumps(out['decode'])}")
+    del logits, cache, params, prompt
+    free_card()
+
+    # ---- (f) training at full width, depth MOE_TRAIN_LAYERS
+    tarch = dataclasses.replace(arch, n_layers=MOE_TRAIN_LAYERS)
+    topt = train_steps.make_optimizer(tarch, base_lr=3e-4, total=MOE_TRAIN_STEPS,
+                                      warmup=train_steps.driver_warmup(MOE_TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    state = train_steps.init_state(tarch, 0, topt, device=DEVICE)
+    train = train_steps.make_train_step(tarch, topt)
+    accum = train.effective_accum(MOE_TRAIN_BATCH)
+    dc = DataCfg(seed=0, batch=MOE_TRAIN_BATCH, seq_len=MOE_TRAIN_SEQ)
+    losses, auxes, walls = [], [], []
+    for step in range(MOE_TRAIN_STEPS):
+        def one():
+            nonlocal state
+            state, m = train(state, batch_for(tarch, dc, step, device=DEVICE))
+            return torch.stack([m["loss"], m["aux"]]).tolist()
+        (loss, aux), w = synced_wall(one)
+        losses.append(loss)
+        auxes.append(aux)
+        walls.append(w)
+    if not all(math.isfinite(x) for x in losses + auxes) or not all(a > 0 for a in auxes):
+        raise AssertionError(f"moe train: loss {losses}, aux {auxes}")
+    tp = sum(p.numel() for p in tree.leaves(state["params"]))
+    out["train"] = dict(layers=MOE_TRAIN_LAYERS, params_b=tp / 1e9, batch=MOE_TRAIN_BATCH,
+                        seq=MOE_TRAIN_SEQ, grad_accum=accum, accum_dtype=tarch.accum_dtype,
+                        losses=losses, aux=auxes, step_walls_s=walls,
+                        step_wall_s_median=statistics.median(walls[1:]),
+                        tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+                        / statistics.median(walls[1:]), peak_gib=peak_gib())
+    say(f"moe train: {json.dumps(out['train'])}")
+    del state, train
+    free_card()
+
+    # ---- (g) smoke size, float32, no drops: decode == forward, the card == the CPU
+    out["smoke"] = {}
+    for name in MOE_SMOKE:
+        a = dataclasses.replace(configs.get(name).smoke(), capacity_factor=8.0)
+        m = LM(a)
+        p_cpu = m.init(torch.Generator().manual_seed(3), device="cpu")
+        p_dev = tree.map_tree(lambda t: t.to(DEVICE), p_cpu)
+        toks = torch.randint(0, a.vocab_size, (2, 12), generator=torch.Generator().manual_seed(4))
+        full, aux_dev = m.forward(p_dev, tokens=toks.to(DEVICE))
+        c = m.init_cache(2, 12, device=DEVICE)
+        dec = []
+        for i in range(12):
+            lg, c = m.decode_step(p_dev, c, tokens=toks[:, i:i + 1].to(DEVICE), pos=i)
+            dec.append(lg)
+        dec_rel = rel_max(torch.cat(dec, dim=1), full)
+        on_cpu, aux_cpu = m.forward(p_cpu, tokens=toks)
+        cpu_rel = rel_max(full.cpu(), on_cpu)
+        aux_rel = abs(float(aux_dev) - float(aux_cpu)) / abs(float(aux_cpu))
+        row = dict(decode_vs_forward_rel=dec_rel, card_vs_cpu_rel=cpu_rel, aux_rel=aux_rel)
+        out["smoke"][name] = row
+        if not (dec_rel < MOE_DEC_TOL and cpu_rel <= MOE_CPU_TOL and aux_rel <= MOE_CPU_TOL):
+            raise AssertionError(f"moe smoke {name}: {row}")
+    say(f"moe smoke (float32, capacity_factor 8): {json.dumps(out['smoke'])}")
+
+    out["launches"] = launch_counts()  # the MoE path reaches no TPU kernel
+    if any(out["launches"].values()):
+        raise AssertionError(f"moe: a Ditto kernel launched: {out['launches']}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -1969,6 +2350,8 @@ def main() -> int:
     del params, x_T, labels, diff_run  # the training phase needs the card's memory
     training = phase_train()
     lm = phase_lm()
+    lm_training = phase_lm_train()
+    moe_path = phase_moe()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -1995,6 +2378,8 @@ def main() -> int:
     say("mesh: " + json.dumps(meshing))
     say("training: " + json.dumps(training))
     say("lm: " + json.dumps(lm))
+    say("lm_train: " + json.dumps(lm_training))
+    say("moe: " + json.dumps(moe_path))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -1,13 +1,13 @@
-"""Train and serve step builders: the diffusion (DiT) family, and the
-LM's serving steps.
+"""Train and serve step builders for the diffusion (DiT) family and the
+LM stack.
 
 Mirror of ``src/repro/launch/steps.py``: ``make_optimizer``,
-``make_dit_model``, the diffusion branch of ``make_train_step``,
-``init_state`` and ``make_denoise_step`` (float and W8A8), and the LM's
-``make_prefill_step`` / ``make_decode_step`` (the dense stack,
-``models/lm.py``). PyTorch runs
-eagerly, so a step is a plain function of (state, batch); autograd gives
-the backward, and the optimizer updates the state's tensors in place.
+``make_dit_model``, ``cross_entropy``, ``make_train_step`` (the diffusion
+branch, :class:`DiffusionTrainStep`, and the LM's, :class:`LMTrainStep`),
+``init_state``, ``make_denoise_step`` (float and W8A8), and the LM's
+``make_prefill_step`` / ``make_decode_step`` (``models/lm.py``). PyTorch
+runs eagerly, so a step is a plain function of (state, batch); autograd
+gives the backward, and the optimizer updates the state's tensors in place.
 
 Numerics kept from the reference: ``x0`` and ``eps`` are cast to the
 config's activation dtype, and ``q_sample``'s float32 ``sqrt(abar)``
@@ -16,9 +16,12 @@ cast up by ``nn/core.py:dense``) and the loss run in float32: DiT-XL/2's
 "bfloat16" config stores bfloat16 and computes in float32. TF32 stays off
 (PyTorch's default for matmuls).
 
-LM training (``cross_entropy``, the LM branch of ``make_train_step`` and
-``init_state``) comes with the LM substrate's training slice, and
-``param_axes`` with ``distributed/`` (ROADMAP.md, queue 1).
+The LM step keeps the reference's: the loss is the float32 cross-entropy
+plus ``aux_weight`` times the MoE layers' aux loss; the batch splits into
+``_effective_accum`` microbatches along dim 1 of a (B / a, a, ...)
+reshape (microbatch i holds rows i, i + a, ...), whose gradients add up in
+``arch.accum_dtype`` and are divided by their count. ``shard=`` and
+``param_axes`` come with ``distributed/`` (ROADMAP.md, queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -73,11 +76,12 @@ def make_dit_model(arch: ArchConfig) -> dit_mod.DiTCfg:
     )
 
 
-def _diffusion_only(arch: ArchConfig, what: str) -> None:
-    if arch.family != "diffusion":
-        raise NotImplementedError(f"{what} for the {arch.family} family is not ported: LM "
-                                  f"training comes with the LM substrate's training slice "
-                                  f"(ROADMAP.md, queue 1, item 8a)")
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE in float32. logits (B, S, V), labels (B, S) integer."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 class DiffusionTrainStep:
@@ -88,7 +92,6 @@ class DiffusionTrainStep:
     the backward and the update."""
 
     def __init__(self, arch: ArchConfig, opt: AdamW):
-        _diffusion_only(arch, "make_train_step")
         self.arch, self.opt = arch, opt
         self.dcfg = make_dit_model(arch)
         self.adtype = torch_dtype(arch.activation_dtype)
@@ -134,9 +137,99 @@ class DiffusionTrainStep:
         return self._sched_on[device]
 
 
-def make_train_step(arch: ArchConfig, opt: AdamW) -> DiffusionTrainStep:
+def _lm_inputs(arch: ArchConfig, batch: dict, *, prefix: bool) -> dict:
+    """The keys of ``batch`` an LM serving step reads, as the reference's
+    steps pick them: ``embeds`` for an audio arch, else ``tokens``; a
+    vision arch's ``frontend_embeds`` where ``prefix`` and present. Every
+    other key (``labels``, ...) is ignored."""
+    kwargs = {}
+    if arch.frontend == "audio":
+        kwargs["embeds"] = batch["embeds"]
+    else:
+        kwargs["tokens"] = batch["tokens"]
+    if prefix and arch.frontend == "vision" and "frontend_embeds" in batch:
+        kwargs["frontend_embeds"] = batch["frontend_embeds"]
+    return kwargs
+
+
+class LMTrainStep:
+    """``(state, batch) -> (state, metrics)`` for the LM stack; state =
+    {params, opt, rng}; metrics {loss (the CE alone), aux, grad_norm, lr}.
+
+    ``batch_shards``: the devices the batch is split over; ``grad_accum``
+    is capped so that each microbatch still divides them."""
+
+    def __init__(self, arch: ArchConfig, opt: AdamW, *, aux_weight: float = 0.01,
+                 batch_shards: int = 1):
+        self.arch, self.opt = arch, opt
+        self.model = LM(arch)
+        self.aux_weight = aux_weight
+        self.batch_shards = max(batch_shards, 1)
+        self.nf = arch.n_frontend_tokens if arch.frontend == "vision" else 0
+        self.acc_dtype = torch_dtype(arch.accum_dtype)
+
+    def effective_accum(self, total_batch: int) -> int:
+        """The reference's ``_effective_accum``: ``grad_accum`` cut to the
+        largest count that divides the batch into microbatches that divide
+        the shards."""
+        shards = self.batch_shards
+        a = min(max(self.arch.grad_accum, 1), max(total_batch // shards, 1))
+        while a > 1 and (total_batch % a or (total_batch // a) % shards):
+            a -= 1
+        return a
+
+    def loss_for(self, params, mb) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(ce + aux_weight * aux, ce, aux) of one microbatch."""
+        logits, aux = self.model.forward(params, **_lm_inputs(self.arch, mb, prefix=bool(self.nf)))
+        if self.nf:
+            logits = logits[:, self.nf:]
+        ce = cross_entropy(logits, mb["labels"])
+        return ce + self.aux_weight * aux, ce, aux
+
+    def _grads(self, params, mb):
+        """(ce, aux, gradient leaves in the params' dtypes) of one microbatch;
+        a leaf the loss does not reach (an audio arch's token table) gets
+        zeros, as under ``jax.grad``."""
+        leaves = [p.detach().requires_grad_(True) for p in tr.leaves(params)]
+        with torch.enable_grad():
+            loss, ce, aux = self.loss_for(tr.unflatten_like(params, leaves), mb)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return ce.detach(), aux.detach(), list(grads)
+
+    def loss_and_grads(self, params, batch):
+        """(ce, aux, grads) of the batch, over its microbatches."""
+        accum = self.effective_accum(next(iter(batch.values())).shape[0])
+        if accum == 1:
+            ce, aux, grads = self._grads(params, batch)
+            return ce, aux, tr.unflatten_like(params, grads)
+        # microbatch i: rows i, i + accum, ... (dim 1 of a (B / a, a, ...) reshape)
+        mbs = {k: v.reshape((v.shape[0] // accum, accum) + v.shape[1:]) for k, v in batch.items()}
+        acc = [torch.zeros(p.shape, dtype=self.acc_dtype, device=p.device)
+               for p in tr.leaves(params)]
+        ce_acc = aux_acc = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+        for i in range(accum):
+            ce, aux, grads = self._grads(params, {k: v[:, i] for k, v in mbs.items()})
+            for a, g in zip(acc, grads):
+                a.add_(g.to(self.acc_dtype))
+            del grads
+            ce_acc, aux_acc = ce_acc + ce, aux_acc + aux
+        for a in acc:
+            a.div_(torch.full((), accum, dtype=a.dtype, device=a.device))
+        return ce_acc / accum, aux_acc / accum, tr.unflatten_like(params, acc)
+
+    def __call__(self, state, batch):
+        ce, aux, grads = self.loss_and_grads(state["params"], batch)
+        new_params, new_opt, stats = self.opt.update(grads, state["opt"], state["params"])
+        return ({"params": new_params, "opt": new_opt, "rng": state["rng"]},
+                {"loss": ce, "aux": aux, **stats})
+
+
+def make_train_step(arch: ArchConfig, opt: AdamW, *, aux_weight: float = 0.01,
+                    batch_shards: int = 1) -> DiffusionTrainStep | LMTrainStep:
     """(state, batch) -> (state, metrics); state = {params, opt, rng}."""
-    return DiffusionTrainStep(arch, opt)
+    if arch.family == "diffusion":
+        return DiffusionTrainStep(arch, opt)
+    return LMTrainStep(arch, opt, aux_weight=aux_weight, batch_shards=batch_shards)
 
 
 def make_prefill_step(arch: ArchConfig) -> Callable:
@@ -144,11 +237,11 @@ def make_prefill_step(arch: ArchConfig) -> Callable:
     forward, its k / v kept (cache length = prompt length). ``batch`` holds
     ``tokens`` (B, S), or ``embeds`` (B, S, D) for an audio arch, and for a
     vision arch optionally ``frontend_embeds`` (B, n_frontend_tokens, D);
-    :meth:`LM.prefill` takes it as keywords."""
+    other keys are ignored."""
     model = LM(arch)
 
     def prefill_step(params, batch):
-        return model.prefill(params, **batch)
+        return model.prefill(params, **_lm_inputs(arch, batch, prefix=True))
 
     return prefill_step
 
@@ -156,13 +249,13 @@ def make_prefill_step(arch: ArchConfig) -> Callable:
 def make_decode_step(arch: ArchConfig) -> Callable:
     """``(params, cache, batch) -> (logits, cache)``: one decode step at
     ``batch["pos"]`` (an int or a 0-d integer tensor) over ``tokens`` (B, 1),
-    or ``embeds`` (B, 1, D) for an audio arch; :meth:`LM.decode_step` takes
-    ``batch`` as keywords. The step's k / v are written into ``cache``,
-    which is returned."""
+    or ``embeds`` (B, 1, D) for an audio arch; other keys are ignored. The
+    step's k / v are written into ``cache``, which is returned."""
     model = LM(arch)
 
     def decode_step(params, cache, batch):
-        return model.decode_step(params, cache, **batch)
+        return model.decode_step(params, cache, pos=batch["pos"],
+                                 **_lm_inputs(arch, batch, prefix=False))
 
     return decode_step
 
@@ -171,7 +264,8 @@ def make_denoise_step(arch: ArchConfig, *, int8: bool = False) -> Callable:
     """One denoiser forward (the unit the Ditto sampler iterates).
     ``int8``: the W8A8 serving path (``models.dit_int8``), whose products run
     on the port's ``int8_matmul`` kernel on the card."""
-    _diffusion_only(arch, "make_denoise_step")
+    if arch.family != "diffusion":
+        raise ValueError(f"make_denoise_step needs the diffusion family, not {arch.family}")
     dcfg = make_dit_model(arch)
     if int8:
         from ..models import dit_int8
@@ -189,13 +283,16 @@ def make_denoise_step(arch: ArchConfig, *, int8: bool = False) -> Callable:
 
 def init_state(arch: ArchConfig, seed: int, opt: AdamW, *, device=None) -> dict:
     """Initialize {params, opt, rng} for training on ``device`` (default:
-    the card): params drawn from a generator on the device seeded with
-    ``seed``; ``rng`` is the seed of the noise draws, a CPU int64 tensor
-    (so the checkpoint keeps it and reading it costs no transfer)."""
-    _diffusion_only(arch, "init_state")
+    the card): params (the DiT's, or ``LM(arch).init``'s) drawn from a
+    generator on the device seeded with ``seed``; ``rng`` is the seed of
+    the noise draws, a CPU int64 tensor (so the checkpoint keeps it and
+    reading it costs no transfer)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = dit_mod.init(gen, make_dit_model(arch), device=dev,
-                          dtype=torch_dtype(arch.param_dtype))
+    if arch.family == "diffusion":
+        params = dit_mod.init(gen, make_dit_model(arch), device=dev,
+                              dtype=torch_dtype(arch.param_dtype))
+    else:
+        params = LM(arch).init(gen, device=dev)
     return {"params": params, "opt": opt.init(params),
             "rng": torch.tensor(seed, dtype=torch.int64)}

@@ -1,6 +1,6 @@
 """Fault-tolerant training driver.
 
-Mirror of ``src/repro/launch/train.py`` (DiT family):
+Mirror of ``src/repro/launch/train.py`` (the DiT and the LM stack):
   * resume-from-latest atomic checkpoint (async save off the step path)
   * deterministic seekable data and noise (both a function of (seed, step))
     -> a bit-identical restart
@@ -11,8 +11,8 @@ Mirror of ``src/repro/launch/train.py`` (DiT family):
 It runs on the card unless ``device="cpu"`` (``--device cpu``) is given,
 and raises when asked for the card without one; nothing falls back.
 
-Usage:  PYTHONPATH=src python -m repro_torch.launch.train --arch dit-xl2 \\
-            --steps 100 --batch 8 [--smoke] [--device cpu]
+Usage:  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+            --steps 100 --batch 8 --seq 128 [--smoke] [--device cpu]
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ class TrainDriver:
         *,
         workdir: str,
         batch: int = 8,
+        seq: int = 128,
         base_lr: float = 3e-4,
         total_steps: int = 100,
         ckpt_every: int = 50,
@@ -51,7 +52,7 @@ class TrainDriver:
     ):
         self.arch = arch
         self.device = resolve_device(device)
-        self.data_cfg = DataCfg(seed=seed, batch=batch)
+        self.data_cfg = DataCfg(seed=seed, batch=batch, seq_len=seq)
         self.total_steps = total_steps
         self.ckpt_every = ckpt_every
         self.straggler_factor = straggler_factor
@@ -125,6 +126,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True, choices=configs.names())
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--workdir", default=DEFAULT_WORKDIR)
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
@@ -134,7 +136,7 @@ def main(argv=None):
     if args.smoke:
         arch = arch.smoke()
     driver = TrainDriver(
-        arch, workdir=args.workdir, batch=args.batch,
+        arch, workdir=args.workdir, batch=args.batch, seq=args.seq,
         base_lr=args.lr, total_steps=args.steps, device=args.device,
     )
     state, step = driver.run()

@@ -1,11 +1,18 @@
-"""Decoder LM assembled from an ArchConfig: the dense stack.
+"""Decoder LM assembled from an ArchConfig: the homogeneous stack.
 
 Mirror of ``src/repro/models/lm.py`` for the families that run the
-homogeneous (attention + FFN) stack: ``dense``, ``vlm`` (a precomputed
+(attention + FFN) stack: ``dense``, ``moe`` (the FFN an ``nn/moe.py``
+layer, whose aux losses ``forward`` sums), ``vlm`` (a precomputed
 patch-embedding prefix) and ``audio`` (frame embeddings in place of the
-token embedding). The ``moe``, ``ssm`` (xLSTM) and ``hybrid`` (Zamba2)
-families raise ``NotImplementedError`` naming their ROADMAP.md item; the
-hybrid's ring-buffer attention comes with them.
+token embedding). The ``ssm`` (xLSTM) and ``hybrid`` (Zamba2) families
+raise ``NotImplementedError`` naming their ROADMAP.md item; the hybrid's
+ring-buffer attention comes with them.
+
+With ``cfg.remat`` (the reference's ``jax.checkpoint`` of each block),
+``forward`` under autograd runs each block through
+``torch.utils.checkpoint`` (non-reentrant): the backward recomputes a
+block's activations from its input, with the same ops and so the same
+bits.
 
 API (plain functions of a params tree of tensors, blocks stacked on a
 leading layer axis as the reference's ``_stack``):
@@ -25,18 +32,20 @@ the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, torch_dtype
 from ..kernels.common import resolve_device
 from ..nn import attention as attn_mod
-from ..nn import core, embedding, mlp
+from ..nn import core, embedding, mlp, moe
 from ..tree import map_tree
 
-DENSE_STACK = ("dense", "vlm", "audio")
+STACK = ("dense", "moe", "vlm", "audio")
 # the families whose layers are not ported yet, and where ROADMAP.md queues them
 NOT_PORTED = {
-    "moe": "nn/moe.py (ROADMAP.md, queue 1, item 8b)",
     "ssm": "nn/xlstm.py (ROADMAP.md, queue 1, item 8c)",
     "hybrid": "nn/ssm.py and the ring-buffer attention (ROADMAP.md, queue 1, item 8d)",
 }
@@ -64,7 +73,7 @@ class LM:
         if cfg.family in NOT_PORTED:
             raise NotImplementedError(f"the {cfg.family} family's LM needs "
                                       f"{NOT_PORTED[cfg.family]}, not ported yet")
-        if cfg.family not in DENSE_STACK:
+        if cfg.family not in STACK:
             raise ValueError(f"family {cfg.family} not built by LM")
         self.cfg = cfg
         self.vocab_padded = _pad_vocab(cfg.vocab_size) if cfg.vocab_size else 0
@@ -81,6 +90,18 @@ class LM:
             window=cfg.attn_window,
         )
         self.mlp_cfg = mlp.MlpCfg(cfg.d_model, cfg.d_ff, act=cfg.act, bias=cfg.attn_bias)
+        self.moe_cfg = moe.MoeCfg(
+            cfg.d_model,
+            cfg.d_ff,
+            n_experts=cfg.n_experts,
+            top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+            d_ff_shared=cfg.d_ff_shared,
+            d_ff_dense=cfg.d_ff_dense,
+            act=cfg.act,
+            w8_gather=cfg.w8_gather,
+            ep_ff_data=cfg.ep_ff_data,
+        ) if cfg.n_experts else None
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator, *, device=None) -> dict:
@@ -103,8 +124,11 @@ class LM:
             "ln1": norm(),
             "attn": attn_mod.init(gen, self.attn_cfg, lead=lead, dtype=dt),
             "ln2": norm(),
-            "mlp": mlp.init(gen, self.mlp_cfg, lead=lead, dtype=dt),
         }
+        if self.moe_cfg:
+            p["blocks"]["moe"] = moe.init(gen, self.moe_cfg, lead=lead, dtype=dt)
+        else:
+            p["blocks"]["mlp"] = mlp.init(gen, self.mlp_cfg, lead=lead, dtype=dt)
         return map_tree(lambda a: a.to(dev), p)
 
     # ------------------------------------------------------------- embedding
@@ -132,28 +156,43 @@ class LM:
         return logits
 
     def _layers(self, params) -> list[dict]:
-        """The stacked blocks as one tree a layer (views)."""
-        blocks = params["blocks"]
-        return [map_tree(lambda a, i=i: a[i], blocks) for i in range(self.cfg.n_layers)]
+        """The stacked blocks as one tree a layer (views). Each stacked leaf
+        is unbound once: indexing it per layer would make autograd build a
+        zero tensor the size of the whole stack for every layer's backward."""
+        layers = map_tree(lambda a: a.unbind(0), params["blocks"])
+        return [map_tree(lambda t, i=i: t[i], layers) for i in range(self.cfg.n_layers)]
 
     def _block(self, bp, x, positions, cache=None, pos=None):
-        """One (attention + FFN) block -> (x, the attention's cache)."""
+        """One (attention + FFN) block -> (x, the attention's cache, the
+        FFN's aux loss: an MoE layer's load-balancing loss, else None)."""
         cfg = self.cfg
         a, nc = attn_mod.apply(bp["attn"], self.attn_cfg, _norm(cfg, bp["ln1"], x),
                                positions=positions, cache=cache, cache_pos=pos)
         x = x + a
-        return x + mlp.apply(bp["mlp"], self.mlp_cfg, _norm(cfg, bp["ln2"], x)), nc
+        h = _norm(cfg, bp["ln2"], x)
+        if self.moe_cfg:
+            f, aux = moe.apply(bp["moe"], self.moe_cfg, h)
+        else:
+            f, aux = mlp.apply(bp["mlp"], self.mlp_cfg, h), None
+        return x + f, nc, aux
 
     # --------------------------------------------------------------- forward
     def forward(self, params, *, tokens=None, embeds=None, frontend_embeds=None):
         """Full-sequence forward (train / prefill math). -> (logits, aux);
-        the dense stack's aux is 0."""
+        aux is the sum of the MoE layers' load-balancing losses (0 for a
+        dense FFN)."""
         x = self._embed_in(params, tokens, embeds, frontend_embeds)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        block = self._block
+        if self.cfg.remat and torch.is_grad_enabled():
+            block = functools.partial(checkpoint, self._block, use_reentrant=False)
         for bp in self._layers(params):
-            x, _ = self._block(bp, x, positions)
+            x, _, a_loss = block(bp, x, positions)
+            if a_loss is not None:
+                aux = aux + a_loss
         x = _norm(self.cfg, params["final_norm"], x)
-        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(params, x), aux
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, cache_len: int, dtype=None, *, device=None) -> dict:
@@ -175,7 +214,8 @@ class LM:
         x = self._embed_in(params, tokens, embeds, None)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device) + pos
         for i, bp in enumerate(self._layers(params)):
-            x, _ = self._block(bp, x, positions, {"k": cache["k"][i], "v": cache["v"][i]}, pos)
+            x, _, _ = self._block(bp, x, positions, {"k": cache["k"][i], "v": cache["v"][i]},
+                                  pos)
         x = _norm(self.cfg, params["final_norm"], x)
         return self._logits(params, x), cache
 
@@ -191,7 +231,7 @@ class LM:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         cache = self.init_cache(b, s, device=x.device)
         for i, bp in enumerate(self._layers(params)):
-            x, nc = self._block(bp, x, positions)
+            x, nc, _ = self._block(bp, x, positions)
             cache["k"][i] = nc["k"]
             cache["v"][i] = nc["v"]
         x = _norm(self.cfg, params["final_norm"], x[:, -1:])

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import core
 from .core import val
@@ -12,7 +13,11 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int, *, dtype=torch.fl
 
 
 def embed(params: dict, tokens: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
-    y = val(params["table"])[tokens]
+    # F.embedding, not ``table[tokens]``: the same rows, and on the card its
+    # backward sorts the ids and sums each row's gradients in a fixed order
+    # (indexing's backward adds them with atomics), so a train step repeats
+    # bit for bit
+    y = F.embedding(tokens, val(params["table"]))
     return y * torch.full((), scale, dtype=y.dtype, device=y.device) if scale != 1.0 else y
 
 

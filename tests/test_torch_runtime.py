@@ -22,7 +22,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as rconfigs  # noqa: E402
 from repro.checkpoint import manager as rmanager  # noqa: E402
+from repro.data import synthetic as rsyn  # noqa: E402
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.data.synthetic import DataCfg, batch_for, host_slice  # noqa: E402
@@ -178,8 +180,14 @@ def test_data_is_the_reference_mixture():
             assert 0.2 < float(resid.std()) < 0.3
     means = torch.stack([x0[labels == c].mean(0) for c in labels.unique().tolist()])
     assert 0.6 < float(means.std()) < 1.0
-    with pytest.raises(NotImplementedError, match="lm_batch"):
-        batch_for(dataclasses.replace(arch, family="dense"), DataCfg(), 0, device="cpu")
+    # an LM arch's batch is the reference's lm_batch layout (its recipe:
+    # tests/test_torch_lm_train.py)
+    larch = configs.get("qwen3-0.6b").smoke()
+    lb = batch_for(larch, DataCfg(batch=3, seq_len=8), 0, device="cpu")
+    want = rsyn.batch_for(rconfigs.get("qwen3-0.6b").smoke(),
+                          rsyn.DataCfg(batch=3, seq_len=8), 0)
+    assert {k: tuple(v.shape) for k, v in lb.items()} == {k: v.shape for k, v in want.items()}
+    assert torch.equal(lb["labels"][:, :-1], lb["tokens"][:, 1:])
 
 
 # ------------------------------------------------------------- train driver

@@ -317,8 +317,19 @@ def test_train_step_draws_noise_from_seed_and_step():
     assert not torch.equal(train.noise(state, batch)[1], e1)
     state["rng"] = torch.tensor(5)
     assert not torch.equal(train.noise(state, batch)[1], e1)
-    with pytest.raises(NotImplementedError, match="LM substrate"):
-        steps.make_train_step(dataclasses.replace(parch, family="dense"), opt)
+    # an LM arch gets the LM branch, whose loss is the reference's (the
+    # step's parity: tests/test_torch_lm_train.py)
+    rarch, larch = rconfigs.get("qwen3-0.6b").smoke(), configs.get("qwen3-0.6b").smoke()
+    lm_step = steps.make_train_step(larch, steps.make_optimizer(larch))
+    assert isinstance(lm_step, steps.LMTrainStep)
+    ropt = rsteps.make_optimizer(rarch)
+    rstate = rsteps.init_state(rarch, jax.random.PRNGKey(0), ropt)
+    lb = batch_for(larch, DataCfg(batch=2, seq_len=8), 0, device="cpu")
+    _, rm = jax.jit(rsteps.make_train_step(rarch, ropt))(
+        rstate, {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in lb.items()})
+    ce, _, _ = lm_step.loss_and_grads(
+        bridge.params_from_numpy(jax.tree.map(np.asarray, rstate["params"]), device="cpu"), lb)
+    np.testing.assert_allclose(float(ce), float(rm["loss"]), rtol=1e-5)
 
 
 def test_tiny_dit_learns():
