@@ -65,7 +65,8 @@ depth (random weights from a seed, the config's dtypes), through
 With ``--train-seq S`` the ``--lm`` mode profiles train steps instead
 (``launch.steps.init_state`` / ``make_train_step``, the config's dtypes,
 remat and grad_accum, at ``--batch`` rows of S tokens from ``lm_batch``,
-depth cut to ``--layers`` when given): the median wall of ``--steps``
+depth cut to ``--layers`` when given: layers, or super-blocks for
+xlstm-125m and zamba2-7b): the median wall of ``--steps``
 steps after a warm one, then the same figures over ``--steps`` profiled
 steps.
 
@@ -310,8 +311,8 @@ def lm_train_profile(name: str, batch: int, seq: int, layers: int, steps: int) -
     import chip_smoke as smoke  # synced_wall
 
     arch = configs.get(name)
-    if layers:
-        arch = dataclasses.replace(arch, n_layers=layers)
+    if layers:  # the recurrent families stack super-blocks
+        arch = dataclasses.replace(arch, **{"n_super" if arch.n_super else "n_layers": layers})
     opt = lm_steps.make_optimizer(arch, total=2 * steps + 1)
     state = {"s": lm_steps.init_state(arch, 0, opt, device="cuda")}
     train = lm_steps.make_train_step(arch, opt)
@@ -342,7 +343,8 @@ def main() -> int:
     ap.add_argument("--prompt", type=int, default=512, help="--lm: the decode prompt")
     ap.add_argument("--prefill", type=int, default=32768, help="--lm: the prefill's tokens")
     ap.add_argument("--train-seq", type=int, default=0, help="--lm: profile train steps instead")
-    ap.add_argument("--layers", type=int, default=0, help="--train-seq: cut the depth to this")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="--train-seq: cut the depth to this (super-blocks for ssm / hybrid)")
     args = ap.parse_args()
     if not args.lm and not 2 <= args.short < args.steps:
         ap.error("need 2 <= --short < --steps: steps 0-1 run eager")

@@ -176,7 +176,40 @@ Phases (any failure raises and the script exits non-zero):
              qwen2-moe and arctic-480b: decode against forward within 2e-3
              relative, the card's forward and aux within 1e-4 of the CPU's.
              No Ditto kernel launches in either phase.
-11. times  — each kernel on the inputs the slice gave it (the last call at
+11. recurrent — the recurrent LM families at full width (random bf16
+             weights from a seed), the DiT and the earlier LMs freed first:
+             (a) xlstm-125m (2 x (5 mLSTM + 1 sLSTM), d 768) at full depth:
+             a 32768-token prefill at B = 1; a 512-token prompt at
+             ``decode_32k``'s B = 128 and 64 greedy steps with the
+             position on the card, no argmax on a pad column, rows 0-1's
+             logits held to a bf16 and a float32 forward over the same 576
+             tokens (4.5 x 128: the forward runs the mLSTM's cells; the
+             gate is relative, ``bf16_gate``); the device activities of a
+             512-token prefill and of a decode step (``torch.profiler``);
+             8 steps from position 524,288, finite. (b) zamba2-7b (13 x
+             (5 Mamba2 + the shared attention) + 3, d 3584, window 4096) at
+             full depth: a 32768-token prefill at B = 1; a 512-token
+             prompt at B = 32 (the cell's 128 cut for memory), its ring
+             widened to 4096 slots (``padded_cache``), 16 greedy steps; 8
+             steps from position 524,288. (c) float32 at full width
+             (xlstm-125m at full depth, zamba2-7b cut to 1 super-block +
+             the 3 trailing layers): decode == forward over 256 tokens
+             (rel < 2e-3: the forward chunked, the decode the cells),
+             prefill's last logits == forward's (rtol = atol = 2e-4), the
+             card's forward against the CPU's (B = 1, TF32 off; within 1e-4
+             of the logits' scale, or 3x the model's own float32 noise, a
+             one-ulp nudge of the embedding, where that is larger); for
+             zamba2 a ring wrap (a 4096-token prompt, 128 steps over slots
+             0-127 at B = 2) == the windowed forward over 33 x 128 tokens
+             (rel < 2e-3). (d) training through ``init_state`` /
+             ``make_train_step`` at ``train_4k``'s S = 4096: xlstm-125m at
+             full depth and the largest B of 16, 8, 4 that fits (a refused
+             B printed), zamba2-7b at 2 super-blocks + 3 (B = 4, its
+             grad_accum 4), 2 steps each, finite losses; remat on / off
+             at 1 super-block (B = 2, S = 512), within 1e-3 (and whether
+             bit-identical), both peaks. It prints walls, tokens/s, peaks
+             and decode ms a step; no Ditto kernel launches.
+12. times  — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -186,8 +219,8 @@ Phases (any failure raises and the script exits non-zero):
              K-major weight; ``library_ms`` is the faster).
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
-``training: {...}``, ``lm: {...}``, ``lm_train: {...}`` and ``moe: {...}``
-lines,
+``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``
+and ``recurrent: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -1618,7 +1651,32 @@ def lm_inputs(arch, g, b, s, *, prefix=True):
 
 
 def padded_cache(model, cache, length):
-    """A zero cache of ``length`` slots holding ``cache`` in its first slots."""
+    """A zero cache of ``length`` slots holding ``cache`` in its first slots.
+
+    A recurrent (xLSTM) cache has no length and comes back as it is. A
+    hybrid's ring is widened to ``min(attn_window, length)`` slots: zero k /
+    v and position -1 in the new ones. The prefill's ring is the prompt's
+    width, each position at its own slot (``pos % W = pos`` while the
+    prompt fits), so the widened ring is the one a decode from position 0
+    would have built."""
+    if model.cfg.family == "ssm":
+        return cache
+    if model.cfg.family == "hybrid":
+        ak = cache["a_k"]
+        w = min(model.cfg.attn_window or length, length)
+        if w == ak.shape[2]:
+            return cache
+        if w < ak.shape[2] or int(cache["a_p"].max()) >= ak.shape[2]:
+            raise ValueError(f"a ring of {ak.shape[2]} slots holding positions up to "
+                             f"{int(cache['a_p'].max())} does not widen to {w}")
+        out = dict(cache)
+        for name in ("a_k", "a_v"):
+            out[name] = torch.zeros(ak.shape[:2] + (w,) + ak.shape[3:], dtype=ak.dtype,
+                                    device=ak.device)
+            out[name][:, :, :ak.shape[2]] = cache[name]
+        out["a_p"] = torch.full((ak.shape[0], w), -1, dtype=cache["a_p"].dtype, device=ak.device)
+        out["a_p"][:, :ak.shape[2]] = cache["a_p"]
+        return out
     k = cache["k"]
     out = model.init_cache(k.shape[1], length, dtype=k.dtype, device=k.device)
     for name in ("k", "v"):
@@ -2219,6 +2277,369 @@ def phase_moe() -> dict:
     return out
 
 
+# --------------------------------------------------------------- recurrent
+REC_XL, REC_ZB = "xlstm-125m", "zamba2-7b"  # the ssm and hybrid families, full width
+REC_PREFILL_LEN = configs.SHAPES["prefill_32k"].seq_len  # 32768, at B = 1
+REC_PROMPT = 512
+REC_DECODE_STEPS = {"ssm": 64, "hybrid": 16}  # zamba2's cut from 64 for the phase's time
+REC_XL_DECODE_BATCH = configs.SHAPES["decode_32k"].global_batch  # 128: ~24 MB of states a row
+REC_ZB_DECODE_BATCH = 32  # the cell's 128 cut: ~0.89 GB of ring and states a row
+REC_CHECK_ROWS = 2  # xlstm decode rows held against a bf16 forward over the same tokens
+# (c): the ring wraps over slots 0-127; the forward over 33 x 128 tokens runs the chunked SSD
+REC_WRAP_BATCH, REC_WRAP_PROMPT, REC_WRAP_STEPS = 2, 4096, 128
+REC_FAR = configs.SHAPES["long_500k"].seq_len  # 524288: decode steps from here
+REC_FAR_STEPS = 8
+REC_IDENTITY_LEN = 256  # (c): float32 decode / prefill against forward, B = 2; card vs CPU, B = 1
+REC_ZB_CUT = dict(n_super=1, n_trailing=3)  # (c): zamba2 at full width, depth 1 x 6 + 3
+REC_DEC_TOL, REC_CPU_TOL = 2e-3, 1e-4
+REC_CPU_NOISE = 3  # (c): the card vs the CPU within 3x the model's own float32 noise, if larger
+REC_TRAIN_SEQ = configs.SHAPES["train_4k"].seq_len  # 4096
+REC_XL_TRAIN_BATCHES = (16, 8, 4)  # the cell's 256 cut: the largest of these that fits
+REC_XL_TRAIN_STEPS = 2  # cut from 4 for the phase's time: ~45 s a host-bound step
+REC_ZB_TRAIN = dict(n_super=2, n_trailing=3)  # (d): ~1.45 B params; the 13 supers need ~69 GB
+REC_ZB_TRAIN_BATCH, REC_ZB_TRAIN_STEPS = 4, 2  # grad_accum 4 of the config: microbatches of 1
+REC_REMAT = {REC_XL: dict(n_super=1), REC_ZB: dict(n_super=1, n_trailing=1)}
+REC_REMAT_BATCH, REC_REMAT_SEQ = 2, 512  # 4 mLSTM / SSD chunks, 2 sLSTM scan segments
+REC_REMAT_TOL = 1e-3
+
+
+def device_activities(fn) -> int:
+    """The device activities (kernels, copies, fills) ``torch.profiler``
+    records over ``fn()``, as ``benchmarks/torch_step_profile.py`` counts
+    them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def greedy_decode(decode, params, cache, arch, g, tok, pos, steps, rows=0):
+    """``steps`` greedy decode steps from ``tok`` at ``pos`` (a device
+    scalar, advanced in place): (the next tokens, cache, step walls, the fed
+    tokens' first ``rows`` rows, their logits, a device flag: a pad argmax
+    or a non-finite logit)."""
+    walls, fed, got = [], [], []
+    bad = torch.zeros((), dtype=torch.bool, device=DEVICE)
+    for _ in range(steps):
+        step_in = dict(next_inputs(arch, g, tok), pos=pos)
+        (logits, cache), w = synced_wall(lambda: decode(params, cache, step_in))
+        walls.append(w)
+        if rows:
+            fed.append(step_in["tokens"][:rows])
+            got.append(logits[:rows, -1, :arch.vocab_size].clone())
+        tok, pad_hit = greedy(logits, arch)
+        bad = bad | pad_hit | ~torch.isfinite(logits[..., :arch.vocab_size]).all()
+        pos += 1
+    return tok, cache, walls, fed, got, bad
+
+
+def bf16_gate(model, params, seq, got, start) -> dict:
+    """The timed bf16 decode's logits ``got`` (rows of ``seq`` from
+    ``start``) against a bf16 forward over ``seq`` and against a float32
+    forward on the same weights. A recurrent model in bf16 sits far from
+    its float32 self at full width (the decode's chunked prefill and the
+    forward's cells round apart), so the gate is relative: the decode is
+    held to the float32 forward within twice the bf16 forward's own
+    distance from it (or ``LM_BF16_TOL``, whichever is larger)."""
+    from repro_torch.models import LM
+
+    v = model.cfg.vocab_size
+    a32 = dataclasses.replace(model.cfg, param_dtype="float32", activation_dtype="float32")
+    with torch.no_grad():
+        want16 = model.forward(params, tokens=seq)[0][:, start:, :v]
+        p32 = tree.map_tree(lambda t: t.float(), params)
+        want32 = LM(a32).forward(p32, tokens=seq)[0][:, start:, :v]
+        del p32
+    got = torch.stack(got, dim=1)
+    row = dict(vs_forward_rel=rel_max(got, want16), vs_float32_rel=rel_max(got, want32),
+               forward_vs_float32_rel=rel_max(want16, want32))
+    row["tol"] = max(2 * row["forward_vs_float32_rel"], LM_BF16_TOL["logits"])
+    row["ok"] = row["vs_float32_rel"] <= row["tol"]
+    return row
+
+
+def rec_serve(name, arch, g, decode_batch) -> dict:
+    """(a) / (b): the 32k prefill at B = 1, a 512-token prompt at
+    ``decode_batch`` then greedy steps with the position on the card (the
+    hybrid's ring widened to its 4096-slot window), and steps from
+    position 524,288; the xLSTM's rows 0-1 held to forwards over the same
+    tokens (``bf16_gate``)."""
+    from repro_torch.models import LM
+
+    model = LM(arch)
+    prefill, decode = train_steps.make_prefill_step(arch), train_steps.make_decode_step(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = synced_wall(lambda: model.init(g, device=DEVICE))
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    out: dict = dict(arch=arch.name, d_model=arch.d_model, n_super=arch.n_super,
+                     per_super=arch.per_super, n_trailing=arch.n_trailing,
+                     params_b=n_params / 1e9, init_s=init_s, init_peak_gib=peak_gib())
+    prefill(params, lm_inputs(arch, g, 1, 256))  # warm
+
+    # ---- the prefill_32k cell's length at B = 1
+    batch = lm_inputs(arch, g, 1, REC_PREFILL_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (logits, cache), wall = synced_wall(lambda: prefill(params, batch))
+    tok, pad_hit = greedy(logits, arch)
+    if not bool(torch.isfinite(logits[..., :arch.vocab_size]).all()) or bool(pad_hit):
+        raise AssertionError(f"recurrent {name} prefill: logits not finite, or a pad argmax")
+    out["prefill"] = dict(seq=REC_PREFILL_LEN, batch=1, wall_s=wall,
+                          tokens_per_s=REC_PREFILL_LEN / wall, peak_gib=peak_gib(),
+                          cell_batch=configs.SHAPES["prefill_32k"].global_batch)
+    say(f"recurrent {name} prefill: {json.dumps(out['prefill'])}")
+    del logits, cache, batch
+    free_card()
+
+    # ---- a 512-token prompt, then greedy decode with the position on the card
+    torch.cuda.reset_peak_memory_stats()
+    prompt = lm_inputs(arch, g, decode_batch, REC_PROMPT)
+    (logits, pc), prompt_s = synced_wall(lambda: prefill(params, prompt))
+    cache = padded_cache(model, pc, configs.SHAPES["decode_32k"].seq_len)  # the ring to 4096
+    del pc
+    tok, bad = greedy(logits, arch)
+    pos = torch.full((), REC_PROMPT, dtype=torch.int32, device=DEVICE)
+    rows = REC_CHECK_ROWS if arch.family == "ssm" else 0
+    steps = REC_DECODE_STEPS[arch.family]
+    tok, cache, walls, fed, got, bad2 = greedy_decode(decode, params, cache, arch, g, tok,
+                                                      pos, steps, rows)
+    if bool(bad | bad2):
+        raise AssertionError(f"recurrent {name} decode: a pad argmax or a non-finite logit")
+    step_s = statistics.median(walls)
+    out["decode"] = dict(batch=decode_batch, prompt=REC_PROMPT, steps=steps,
+                         prompt_prefill_s=prompt_s, step_walls_s=walls,
+                         step_ms_median=step_s * 1e3, tokens_per_s=decode_batch / step_s,
+                         peak_gib=peak_gib(), cache_gib=sum(
+                             t.numel() * t.element_size() for t in cache.values()) / 2**30,
+                         cell_batch=configs.SHAPES["decode_32k"].global_batch)
+    if rows:  # the timed path against forwards over the same 576 tokens (the cells)
+        seq = torch.cat([prompt["tokens"][:rows]] + fed, dim=1)
+        out["decode"]["bf16_check"] = bf16_gate(model, params, seq, got, REC_PROMPT)
+        del seq
+        if not out["decode"]["bf16_check"]["ok"]:
+            raise AssertionError(f"recurrent {name} decode vs forward: {out['decode']}")
+        # the host-bound loop's launches: one prefill of the prompt's length, one step
+        one = lm_inputs(arch, g, 1, REC_PROMPT)
+        step_in = dict(tokens=tok, pos=pos)
+        out["device_activities"] = dict(
+            prefill_tokens=REC_PROMPT, prefill=device_activities(lambda: prefill(params, one)),
+            decode_batch=decode_batch,
+            decode_step=device_activities(lambda: decode(params, cache, step_in)))
+        out["device_activities"]["prefill_per_token"] = (
+            out["device_activities"]["prefill"] / REC_PROMPT)
+        say(f"recurrent {name} device activities: {json.dumps(out['device_activities'])}")
+        del one
+    say(f"recurrent {name} decode: " + json.dumps(
+        {k: v for k, v in out["decode"].items() if k != "step_walls_s"}))
+    del fed, got, prompt, logits
+
+    # ---- long_500k: steps from position 524,288 (the ring and the states have no end)
+    fpos = torch.full((), REC_FAR, dtype=torch.int32, device=DEVICE)
+    tok, cache, fwalls, _, _, bad = greedy_decode(decode, params, cache, arch, g, tok, fpos,
+                                                  REC_FAR_STEPS)
+    if bool(bad):
+        raise AssertionError(f"recurrent {name}: a decode step past {REC_FAR} is not finite")
+    out["far"] = dict(first_pos=REC_FAR, steps=REC_FAR_STEPS, batch=tok.shape[0],
+                      step_ms_median=statistics.median(fwalls) * 1e3)
+    say(f"recurrent {name} far: {json.dumps(out['far'])}")
+    del params, cache
+    free_card()
+    return out
+
+
+@torch.no_grad()  # values only, as the serving steps run
+def rec_identities(arch) -> dict:
+    """(c): float32 at full width: decode (the position on the card) ==
+    forward over ``REC_IDENTITY_LEN`` tokens (the forward chunked, the
+    decode the cells), prefill's last logits == forward's, the card's
+    forward against the CPU's on the same weights (within ``REC_CPU_TOL``,
+    or ``REC_CPU_NOISE`` times the model's own float32 noise where that is
+    larger), and for the hybrid a decode that wraps its 4096-slot ring ==
+    the windowed forward."""
+    from repro_torch.models import LM
+
+    a32 = dataclasses.replace(arch, param_dtype="float32", activation_dtype="float32")
+    m32 = LM(a32)
+    p_cpu = m32.init(torch.Generator().manual_seed(41), device="cpu")
+    p32 = tree.map_tree(lambda t: t.to(DEVICE), p_cpu)
+    toks = torch.randint(0, arch.vocab_size, (2, REC_IDENTITY_LEN),
+                         generator=torch.Generator().manual_seed(43)).to(DEVICE)
+    full, _ = m32.forward(p32, tokens=toks)
+    cache = m32.init_cache(2, REC_IDENTITY_LEN, device=DEVICE)
+    dec, dpos = [], torch.zeros((), dtype=torch.int32, device=DEVICE)
+    for i in range(REC_IDENTITY_LEN):
+        lg, cache = m32.decode_step(p32, cache, tokens=toks[:, i:i + 1], pos=dpos)
+        dec.append(lg)
+        dpos += 1
+    dec_rel = rel_max(torch.cat(dec, dim=1), full)
+    last, _ = m32.prefill(p32, tokens=toks)
+    pre_ratio = float(((last[:, 0] - full[:, -1]).abs() / (2e-4 * (1 + full[:, -1].abs()))).max())
+    on_card, _ = m32.forward(p32, tokens=toks[:1])
+    (on_cpu, _), cpu_s = synced_wall(lambda: m32.forward(p_cpu, tokens=toks[:1].cpu()))
+    # the model's own float32 noise: the CPU logits' move when each embedding
+    # entry moves by about one ulp (the port's zamba2 at random weights
+    # amplifies it ~2000x)
+    table = p_cpu["embed"]["table"]
+    jitter = torch.randn(table.shape, generator=torch.Generator().manual_seed(47))
+    nudged, _ = m32.forward(dict(p_cpu, embed={"table": table * (1 + 1e-7 * jitter)}),
+                            tokens=toks[:1].cpu())
+    real = slice(0, arch.vocab_size)
+    cpu_rel = rel_max(on_card[..., real].cpu(), on_cpu[..., real])
+    noise = rel_max(nudged[..., real], on_cpu[..., real])
+    row = dict(layers=[a32.n_super, a32.per_super, a32.n_trailing], seq=REC_IDENTITY_LEN,
+               decode_vs_forward_rel=dec_rel, prefill_vs_forward_tol_share=pre_ratio,
+               card_vs_cpu_rel=cpu_rel, cpu_ulp_noise_rel=noise,
+               card_vs_cpu_tol=max(REC_CPU_TOL, REC_CPU_NOISE * noise), cpu_forward_s=cpu_s)
+    del nudged, jitter
+    if arch.family == "hybrid":  # the ring wraps: 128 steps past a 4096-token prompt
+        wt = torch.randint(0, arch.vocab_size, (REC_WRAP_BATCH, REC_WRAP_PROMPT + REC_WRAP_STEPS),
+                           generator=torch.Generator().manual_seed(53)).to(DEVICE)
+        _, wc = m32.prefill(p32, tokens=wt[:, :REC_WRAP_PROMPT])
+        wpos, wdec = torch.full((), REC_WRAP_PROMPT, dtype=torch.int32, device=DEVICE), []
+        for i in range(REC_WRAP_PROMPT, REC_WRAP_PROMPT + REC_WRAP_STEPS):
+            lg, wc = m32.decode_step(p32, wc, tokens=wt[:, i:i + 1], pos=wpos)
+            wdec.append(lg)
+            wpos += 1
+        want = m32.forward(p32, tokens=wt)[0][:, REC_WRAP_PROMPT:]
+        slots = wc["a_p"][0, :REC_WRAP_STEPS + 1].tolist()
+        row["ring_wrap"] = dict(batch=REC_WRAP_BATCH, prompt=REC_WRAP_PROMPT,
+                                steps=REC_WRAP_STEPS, ring=wc["a_k"].shape[2],
+                                decode_vs_forward_rel=rel_max(torch.cat(wdec, dim=1), want),
+                                slots_ok=slots == list(range(REC_WRAP_PROMPT, REC_WRAP_PROMPT
+                                                             + REC_WRAP_STEPS)) + [REC_WRAP_STEPS])
+        del wc, wdec, want
+    wrap = row.get("ring_wrap", dict(decode_vs_forward_rel=0.0, slots_ok=True))
+    if not (dec_rel < REC_DEC_TOL and pre_ratio <= 1 and cpu_rel <= row["card_vs_cpu_tol"]
+            and wrap["decode_vs_forward_rel"] < REC_DEC_TOL and wrap["slots_ok"]):
+        raise AssertionError(f"recurrent {arch.name} identities: {row}")
+    say(f"recurrent {arch.name} identities (float32): {json.dumps(row)}")
+    del p32, p_cpu, cache, full, dec, on_card, on_cpu
+    free_card()
+    return row
+
+
+def rec_train(arch, batches, steps) -> dict:
+    """(d): ``steps`` train steps at ``train_4k``'s S through ``init_state``
+    / ``make_train_step`` (the config's grad_accum) at the first of
+    ``batches`` that fits; finite losses."""
+    opt = train_steps.make_optimizer(arch, base_lr=3e-4, total=steps,
+                                     warmup=train_steps.driver_warmup(steps))
+    train = train_steps.make_train_step(arch, opt)
+    refused = []
+    for batch in batches:
+        torch.cuda.reset_peak_memory_stats()
+        state = None
+        try:
+            state = train_steps.init_state(arch, 0, opt, device=DEVICE)
+            dc = DataCfg(seed=0, batch=batch, seq_len=REC_TRAIN_SEQ)
+            losses, walls = [], []
+            for step in range(steps):
+                def one():
+                    nonlocal state
+                    state, m = train(state, batch_for(arch, dc, step, device=DEVICE))
+                    return float(m["loss"])
+                loss, w = synced_wall(one)
+                losses.append(loss)
+                walls.append(w)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            refused.append({"batch": batch, "error": str(e).splitlines()[0][:160]})
+        state = None  # the error (and its frames) are gone here: free their memory
+        free_card()
+    else:
+        raise AssertionError(f"recurrent {arch.name} train: no batch of {batches} fits: {refused}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"recurrent {arch.name} train: a loss is not finite: {losses}")
+    step_s = statistics.median(walls[1:])
+    row = dict(layers=[arch.n_super, arch.per_super, arch.n_trailing],
+               params_b=sum(p.numel() for p in tree.leaves(state["params"])) / 1e9,
+               seq=REC_TRAIN_SEQ, batch=batch, refused=refused,
+               grad_accum=train.effective_accum(batch), losses=losses, step_walls_s=walls,
+               step_wall_s_median=step_s, tokens_per_s=batch * REC_TRAIN_SEQ / step_s,
+               peak_gib=peak_gib(), cell_batch=configs.SHAPES["train_4k"].global_batch)
+    say(f"recurrent {arch.name} train: {json.dumps(row)}")
+    del state, train
+    free_card()
+    return row
+
+
+def rec_remat(arch) -> dict:
+    """(d): at a depth cut, the loss and gradients with remat on and off
+    (within ``REC_REMAT_TOL`` relative; whether bit-identical), both peaks."""
+    from repro_torch.models import LM
+
+    params = LM(arch).init(torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+    rb = batch_for(arch, DataCfg(seed=1, batch=REC_REMAT_BATCH, seq_len=REC_REMAT_SEQ), 0,
+                   device=DEVICE)
+    opt = train_steps.make_optimizer(arch)
+    runs = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        ce, _, grads = train_steps.make_train_step(dataclasses.replace(arch, remat=remat),
+                                                   opt).loss_and_grads(params, rb)
+        torch.cuda.synchronize()
+        runs[remat] = (ce, tree.leaves(grads), peak_gib() - base)
+    (ce1, g1, peak1), (ce0, g0, peak0) = runs[True], runs[False]
+    row = dict(layers=[arch.n_super, arch.per_super, arch.n_trailing], batch=REC_REMAT_BATCH,
+               seq=REC_REMAT_SEQ, loss_rel=abs(float(ce1) - float(ce0)) / abs(float(ce0)),
+               grad_rel=max(rel_max(a, b) for a, b in zip(g1, g0) if b.abs().max() > 0),
+               bit_identical=torch.equal(ce1, ce0) and all(torch.equal(a, b)
+                                                           for a, b in zip(g1, g0)),
+               tol=REC_REMAT_TOL, peak_gib_over_held=dict(remat=peak1, no_remat=peak0))
+    if not (row["loss_rel"] <= REC_REMAT_TOL and row["grad_rel"] <= REC_REMAT_TOL):
+        raise AssertionError(f"recurrent {arch.name} remat: {row}")
+    say(f"recurrent {arch.name} remat: {json.dumps(row)}")
+    del params, rb, runs, g1, g0
+    free_card()
+    return row
+
+
+def phase_recurrent() -> dict:
+    """The recurrent LM families at full width: (a) xlstm-125m and (b)
+    zamba2-7b served (a 32k prefill, greedy decode, the ring wrap, steps
+    from position 524,288), (c) the float32 identities and the card against
+    the CPU, (d) training at ``train_4k``'s S and remat on against off."""
+    free_card()
+    t_phase = time.perf_counter()
+    zero_counts()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("recurrent: TF32 is on; the float32 identities need it off")
+    out: dict = {}
+    xl, zb = lm_arch(REC_XL), lm_arch(REC_ZB)
+    walls = {}
+    t = time.perf_counter()
+    out["xlstm"] = rec_serve(REC_XL, xl, torch.Generator(device=DEVICE).manual_seed(47),
+                             REC_XL_DECODE_BATCH)
+    walls["a"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["zamba2"] = rec_serve(REC_ZB, zb, torch.Generator(device=DEVICE).manual_seed(53),
+                              REC_ZB_DECODE_BATCH)
+    walls["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["identities"] = {REC_XL: rec_identities(xl),
+                         REC_ZB: rec_identities(dataclasses.replace(zb, **REC_ZB_CUT))}
+    walls["c"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["train"] = {
+        REC_XL: rec_train(xl, REC_XL_TRAIN_BATCHES, REC_XL_TRAIN_STEPS),
+        REC_ZB: rec_train(dataclasses.replace(zb, **REC_ZB_TRAIN), (REC_ZB_TRAIN_BATCH,),
+                          REC_ZB_TRAIN_STEPS)}
+    out["remat"] = {n: rec_remat(dataclasses.replace(a, **REC_REMAT[n]))
+                    for n, a in ((REC_XL, xl), (REC_ZB, zb))}
+    walls["d"] = time.perf_counter() - t
+    out["part_walls_s"] = walls
+    out["launches"] = launch_counts()  # the recurrent paths reach no TPU kernel: all 0
+    if any(out["launches"].values()):
+        raise AssertionError(f"recurrent: a Ditto kernel launched: {out['launches']}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -2352,6 +2773,7 @@ def main() -> int:
     lm = phase_lm()
     lm_training = phase_lm_train()
     moe_path = phase_moe()
+    recurrent = phase_recurrent()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -2380,6 +2802,7 @@ def main() -> int:
     say("lm: " + json.dumps(lm))
     say("lm_train: " + json.dumps(lm_training))
     say("moe: " + json.dumps(moe_path))
+    say("recurrent: " + json.dumps(recurrent))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

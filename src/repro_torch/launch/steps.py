@@ -237,9 +237,12 @@ def make_prefill_step(arch: ArchConfig) -> Callable:
     forward, its k / v kept (cache length = prompt length). ``batch`` holds
     ``tokens`` (B, S), or ``embeds`` (B, S, D) for an audio arch, and for a
     vision arch optionally ``frontend_embeds`` (B, n_frontend_tokens, D);
-    other keys are ignored."""
+    other keys are ignored. Serving records no autograd graph (the steps
+    run under ``torch.no_grad``), so the recurrent layers take no
+    checkpoints."""
     model = LM(arch)
 
+    @torch.no_grad()
     def prefill_step(params, batch):
         return model.prefill(params, **_lm_inputs(arch, batch, prefix=True))
 
@@ -250,9 +253,11 @@ def make_decode_step(arch: ArchConfig) -> Callable:
     """``(params, cache, batch) -> (logits, cache)``: one decode step at
     ``batch["pos"]`` (an int or a 0-d integer tensor) over ``tokens`` (B, 1),
     or ``embeds`` (B, 1, D) for an audio arch; other keys are ignored. The
-    step's k / v are written into ``cache``, which is returned."""
+    step is written into ``cache`` (k / v, or the recurrent states and the
+    ring), which is returned; no autograd graph is recorded."""
     model = LM(arch)
 
+    @torch.no_grad()
     def decode_step(params, cache, batch):
         return model.decode_step(params, cache, pos=batch["pos"],
                                  **_lm_inputs(arch, batch, prefix=False))

@@ -1,8 +1,7 @@
 """Minimal functional NN substrate.
 
 Mirror of the parts of ``src/repro/nn/core.py`` that the DiT and the LM
-stack reach (``segmented_scan``, the recurrent layers' scan, comes with
-``nn/xlstm.py``; conv and group norm have no caller in the port).
+reach (conv and group norm have no caller in the port).
 Params are nested dicts of tensors. :class:`Param` (an array tagged with
 logical sharding axes in the reference) is kept so that apply functions
 accept a tagged tree as well as a plain one — ``val`` normalizes — but
@@ -19,6 +18,7 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass
@@ -140,6 +140,46 @@ def layernorm(params: dict, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tens
     if "b" in params:
         y = y + val(params["b"]).to(torch.float32)
     return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Segmented (remat) scan — recurrent layers at long sequence length
+# ---------------------------------------------------------------------------
+
+
+def scan(cell: Callable, carry, xs: tuple):
+    """A loop over time: ``cell(carry, x_t) -> (carry, y_t)`` for each t,
+    the x_t the t-th rows of the time-leading tensors ``xs``; returns
+    (carry, the y_t stacked along a new leading dim). Each input is unbound
+    once: indexing it a step would make autograd build a zero tensor of
+    its whole size for every step's backward."""
+    ys = []
+    for x_t in zip(*(a.unbind(0) for a in xs)):
+        carry, y = cell(carry, x_t)
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+def segmented_scan(cell: Callable, init, xs: tuple, *, segment: int = 256):
+    """:func:`scan` over time with gradient checkpointing at segment
+    boundaries, as the reference's ``jax.checkpoint`` of each segment.
+
+    With grad enabled each segment of ``gcd(segment, length)`` steps (of
+    ``segment`` when it divides the length) runs through
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes a
+    segment from its carry, with the same ops and so the same bits, and
+    keeps O(S / segment * state) residuals instead of O(S * state). With
+    grad disabled, or where the length is one segment or less, it is the
+    plain loop."""
+    length = xs[0].shape[0]
+    seg = math.gcd(segment, length) if length % segment else segment
+    if seg <= 1 or length <= seg or not torch.is_grad_enabled():
+        return scan(cell, init, xs)
+    carry, ys = init, []
+    for seg_xs in zip(*(a.split(seg) for a in xs)):
+        carry, y = checkpoint(scan, cell, carry, seg_xs, use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

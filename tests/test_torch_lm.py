@@ -20,8 +20,9 @@ float32). Tolerances, with their reasons:
 
 Also here: the port's two deliberate divergences (the decode cache is
 written in place; a position at or past the cache length raises), the
-``NotImplementedError`` of the families not ported yet, and the new
-modules import neither JAX nor the JAX package.
+diffusion family refused by ``LM``, and the new modules import neither
+JAX nor the JAX package. The recurrent families (``ssm``, ``hybrid``) are
+held to the reference in ``tests/test_torch_recurrent.py``.
 """
 import ast
 import dataclasses
@@ -512,21 +513,16 @@ def test_decode_past_the_cache_raises():
     assert bool(jnp.any(rc["k"][:, :, 5] != 0))
 
 
-@pytest.mark.parametrize("name,item", [("xlstm-125m", "8c"), ("zamba2-7b", "8d")])
-def test_families_not_ported_name_their_item(name, item):
-    arch = configs.get(name).smoke()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
-        LM(arch)
-    for make in (steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            make(arch)
+def test_dit_is_not_built_by_lm():
+    """The diffusion family is the DiT's (``nn/dit.py``), not the LM's."""
     with pytest.raises(ValueError, match="not built by LM"):
         LM(configs.get("dit-xl2").smoke())
 
 
 # ------------------------------------------------------------ the new modules
 NEW_MODULES = ["configs/base.py", "configs/registry.py", "nn/core.py", "nn/embedding.py",
-               "nn/mlp.py", "nn/attention.py", "nn/moe.py", "models/__init__.py",
+               "nn/mlp.py", "nn/attention.py", "nn/moe.py", "nn/xlstm.py", "nn/ssm.py",
+               "models/__init__.py",
                "models/lm.py", "launch/steps.py", "launch/train.py", "data/synthetic.py"] + [f"configs/{n.replace('-', '_').replace('.', '_')}.py"
                                      for n in rconfigs.names()]
 
