@@ -203,13 +203,34 @@ Phases (any failure raises and the script exits non-zero):
              0-127 at B = 2) == the windowed forward over 33 x 128 tokens
              (rel < 2e-3). (d) training through ``init_state`` /
              ``make_train_step`` at ``train_4k``'s S = 4096: xlstm-125m at
-             full depth and the largest B of 16, 8, 4 that fits (a refused
-             B printed), zamba2-7b at 2 super-blocks + 3 (B = 4, its
+             full depth and the largest B of 8, 4 that fits (a refused
+             B printed; 16 does not fit), zamba2-7b at 2 super-blocks + 3 (B = 4, its
              grad_accum 4), 2 steps each, finite losses; remat on / off
              at 1 super-block (B = 2, S = 512), within 1e-3 (and whether
              bit-identical), both peaks. It prints walls, tokens/s, peaks
              and decode ms a step; no Ditto kernel launches.
-12. times  — each kernel on the inputs the slice gave it (the last call at
+12. distributed — the rest of ``distributed/`` on one rank (a NCCL group
+             of one, a (1, 1) ``DeviceMesh``): (a) ``param_axes`` and
+             ``spec_for`` for all eleven configs at full width on the (16,
+             16) and (2, 16, 16) production meshes, on meta tensors, the
+             card's memory unmoved (leaves, sharded leaves and parameter
+             bytes a chip printed); (b) qwen3-0.6b's full-width params
+             laid out by ``param_shardings``, each local tensor equal to
+             its leaf, and a depth-2 train state (``TrainDriver``, 2 steps)
+             restored with ``shardings=``, bit for bit; (c) 20 rounds of
+             ``compressed_psum_grads`` on qwen3-0.6b's full-width
+             gradients (one ``loss_and_grads`` at S = 4096, B = 1, as
+             float32) scaled by (1 + 0.05 i), accumulated means plus the
+             residual within 1e-4 (relative L2, each leaf) of the exact
+             sum, ms a round and payload bytes printed; (d) DiT-XL/2's 28
+             W8A8 blocks through ``pipeline_apply``, 4 stages of 7 on the
+             one card, 4 microbatches of 4 rows, the conditioning carried
+             as one more token row: bit for bit against the sequential
+             stack on each microbatch, 784 ``int8_matmul`` launches each
+             equal to the plain version; the walls of both (on one card,
+             the schedule's own cost) and their device activities and
+             time (``torch.profiler``).
+13. times  — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -219,8 +240,8 @@ Phases (any failure raises and the script exits non-zero):
              K-major weight; ``library_ms`` is the faster).
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
-``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``
-and ``recurrent: {...}`` lines,
+``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``,
+``recurrent: {...}`` and ``distributed: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -248,11 +269,13 @@ from repro_torch import configs, tree  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan, PlanSchedule, dit_runner  # noqa: E402
 from repro_torch.data.synthetic import DataCfg, batch_for  # noqa: E402
+from repro_torch.distributed import collectives, pipeline, sharding  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
 from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.train import TrainDriver  # noqa: E402
 from repro_torch.models import dit_int8  # noqa: E402
@@ -1464,6 +1487,32 @@ def synced_wall(fn):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def int8_held_exactly(where: str):
+    """Route ``ops.int8_act_matmul`` (the W8A8 products) through a check:
+    each product the kernel returns equals the plain version on the same
+    operands, exactly (an int8 product is exact). Yields the count of
+    products held at each (x, W) shape."""
+    held: dict = {}
+    kernel_route = ops.int8_act_matmul
+
+    def held_exactly(x_q, w_q, **kw):
+        y = kernel_route(x_q, w_q, **kw)
+        want = ref.int8_matmul_ref(x_q, w_q, w_transposed=kw.get("w_transposed", False))
+        key = f"x{list(x_q.shape)} w{list(w_q.shape)}"
+        if not torch.equal(y, want):
+            raise AssertionError(f"{where}: int8_matmul differs from its plain version at {key}: "
+                                 f"{int((y != want).sum())} entries")
+        held[key] = held.get(key, 0) + 1
+        return y
+
+    ops.int8_act_matmul = held_exactly
+    try:
+        yield held
+    finally:
+        ops.int8_act_matmul = kernel_route
+
+
 def phase_train() -> dict:
     """DiT-XL/2 training at full width and depth, the W8A8 step on its
     trained weights, and a depth-2 resume through TrainDriver."""
@@ -1527,29 +1576,11 @@ def phase_train() -> dict:
              "t": torch.tensor([700.0, 500.0], device=DEVICE)[:Q8_BATCH],
              "labels": torch.randint(0, cfg.n_classes, (Q8_BATCH,), generator=g, device=DEVICE)}
     q8, fp = train_steps.make_denoise_step(arch, int8=True), train_steps.make_denoise_step(arch)
-    # the counted run: every product it launches is held to the plain
-    # version on the same operands, exactly (an int8 product is exact),
-    # at each (x, W) shape the step gives the kernel
-    held: dict = {}
-    kernel_route = ops.int8_act_matmul
-
-    def held_exactly(x_q, w_q, **kw):
-        y = kernel_route(x_q, w_q, **kw)
-        want = ref.int8_matmul_ref(x_q, w_q, w_transposed=kw.get("w_transposed", False))
-        key = f"x{list(x_q.shape)} w{list(w_q.shape)}"
-        if not torch.equal(y, want):
-            raise AssertionError(f"w8a8: int8_matmul differs from its plain version at {key}: "
-                                 f"{int((y != want).sum())} entries")
-        held[key] = held.get(key, 0) + 1
-        return y
-
-    ops.int8_act_matmul = held_exactly
-    try:
+    # the counted run: every product it launches is held to the plain version
+    with int8_held_exactly("w8a8") as held:
         zero_counts()
         y_q = q8(qparams, batch)
         per_step = launch_counts()
-    finally:
-        ops.int8_act_matmul = kernel_route
     # per block: mod, q, k, v, o, wi, wo; then patch_embed, t_mlp1, t_mlp2,
     # final_mod, final_out
     n_products = 7 * cfg.n_layers + 5
@@ -2294,7 +2325,7 @@ REC_ZB_CUT = dict(n_super=1, n_trailing=3)  # (c): zamba2 at full width, depth 1
 REC_DEC_TOL, REC_CPU_TOL = 2e-3, 1e-4
 REC_CPU_NOISE = 3  # (c): the card vs the CPU within 3x the model's own float32 noise, if larger
 REC_TRAIN_SEQ = configs.SHAPES["train_4k"].seq_len  # 4096
-REC_XL_TRAIN_BATCHES = (16, 8, 4)  # the cell's 256 cut: the largest of these that fits
+REC_XL_TRAIN_BATCHES = (8, 4)  # the cell's 256 cut: the largest of these that fits
 REC_XL_TRAIN_STEPS = 2  # cut from 4 for the phase's time: ~45 s a host-bound step
 REC_ZB_TRAIN = dict(n_super=2, n_trailing=3)  # (d): ~1.45 B params; the 13 supers need ~69 GB
 REC_ZB_TRAIN_BATCH, REC_ZB_TRAIN_STEPS = 4, 2  # grad_accum 4 of the config: microbatches of 1
@@ -2303,17 +2334,23 @@ REC_REMAT_BATCH, REC_REMAT_SEQ = 2, 512  # 4 mLSTM / SSD chunks, 2 sLSTM scan se
 REC_REMAT_TOL = 1e-3
 
 
-def device_activities(fn) -> int:
+def device_profile(fn) -> dict:
     """The device activities (kernels, copies, fills) ``torch.profiler``
     records over ``fn()``, as ``benchmarks/torch_step_profile.py`` counts
-    them."""
+    them, and the sum of their device times (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(activities=len(acts),
+                device_ms=sum(e.time_range.elapsed_us() for e in acts) / 1e3)
+
+
+def device_activities(fn) -> int:
+    return device_profile(fn)["activities"]
 
 
 def greedy_decode(decode, params, cache, arch, g, tok, pos, steps, rows=0):
@@ -2640,6 +2677,257 @@ def phase_recurrent() -> dict:
     return out
 
 
+# ------------------------------------------------------------- distributed
+DIST_LM = "qwen3-0.6b"  # (b) and (c): full width, bf16 params
+DIST_RESTORE_LAYERS = 2  # (b): the restored train state at full width, depth 2
+DIST_RESTORE_STEPS, DIST_RESTORE_BATCH, DIST_RESTORE_SEQ = 2, 2, 1024
+DIST_GRAD_SEQ = LMT_SEQ  # (c): one full-depth loss_and_grads at S = 4096, B = 1
+DIST_ROUNDS = 20  # (c): g (1 + 0.05 i), as examples/train_lm.py
+DIST_TOL = 1e-4  # (c): tests/test_runtime.py::test_compressed_psum_error_feedback_converges
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 4  # (d): 4 stages of 7 blocks, B = 16
+PIPE_KERNELS = ("int8_matmul",)
+
+
+def sharded_bytes(axes_tree, shape_tree, rules, mesh) -> int:
+    """Parameter bytes one device of ``mesh`` holds under ``spec_for``."""
+    sizes = sharding.mesh_axes(mesh)
+    total = 0
+    for axes, s in zip(tree.leaves(axes_tree), tree.leaves(shape_tree)):
+        split = 1
+        for entry in sharding.spec_for(axes, tuple(s.shape), rules, mesh):
+            for a in (entry,) if isinstance(entry, str) else entry or ():
+                split *= sizes[a]
+        total += s.numel() * s.element_size() // split
+    return total
+
+
+def dist_rules() -> dict:
+    """(a): ``param_axes`` and ``spec_for`` for every config at full width on
+    both production meshes, with no card memory allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    rows = {}
+    for name in configs.names():
+        arch = configs.get(name)
+        axes, shapes = train_steps.param_axes(arch)
+        row = dict(leaves=len(tree.leaves(axes)),
+                   params_b=sum(s.numel() for s in tree.leaves(shapes)) / 1e9)
+        for multi_pod in (False, True):
+            mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod)
+            rules = sharding.make_rules(arch, multi_pod=multi_pod)
+            specs = [sharding.spec_for(a, tuple(s.shape), rules, mesh)
+                     for a, s in zip(tree.leaves(axes), tree.leaves(shapes))]
+            key = "x".join(map(str, mesh.axis_sizes))
+            row[f"sharded_{key}"] = sum(any(e is not None for e in sp) for sp in specs)
+            row[f"per_chip_gib_{key}"] = sharded_bytes(axes, shapes, rules, mesh) / 2**30
+        rows[name] = row
+    q_axes, q_shapes = train_steps.param_axes(configs.get("dit-xl2"), int8=True)
+    torch.cuda.synchronize()
+    out = dict(configs=rows, dit_int8_leaves=len(tree.leaves(q_axes)),
+               dit_int8_sharded=sum(bool(a) for a in tree.leaves(q_axes)),
+               wall_s=time.perf_counter() - t,
+               allocated_delta=torch.cuda.memory_allocated() - held,
+               peak_delta=torch.cuda.max_memory_allocated() - held)
+    if out["allocated_delta"] or out["peak_delta"]:
+        raise AssertionError(f"distributed rules: card memory moved: {out}")
+    say(f"distributed rules: {json.dumps(out)}")
+    return out
+
+
+def dist_restore(mesh) -> dict:
+    """(b): qwen3-0.6b's full-width params laid out by ``param_shardings`` on
+    the one-rank (1, 1) mesh, and a depth-2 train state restored with
+    ``shardings=``, each leaf bit for bit."""
+    from repro_torch.models import LM
+
+    arch = lm_arch(DIST_LM)
+    rules = sharding.make_rules(arch)
+    axes, _ = train_steps.param_axes(arch)
+    params = LM(arch).init(torch.Generator(device=DEVICE).manual_seed(61), device=DEVICE)
+    lays = sharding.param_shardings(axes, params, rules, mesh)
+    same = [torch.equal(sharding.layout(p, lay).to_local(), p)
+            for p, lay in zip(tree.leaves(params), tree.leaves(lays))]
+    out = dict(mesh=list(mesh.shape), device_type=mesh.device_type, leaves=len(same),
+               layout_bit_identical=all(same))
+    del params, lays
+    free_card()
+
+    arch2 = dataclasses.replace(arch, n_layers=DIST_RESTORE_LAYERS)
+    axes2, _ = train_steps.param_axes(arch2)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver = TrainDriver(arch2, workdir=tmp, batch=DIST_RESTORE_BATCH, seq=DIST_RESTORE_SEQ,
+                             total_steps=DIST_RESTORE_STEPS, ckpt_every=0, device=DEVICE)
+        state, step = driver.run()
+        shardings = {"params": sharding.param_shardings(axes2, state["params"], rules, mesh),
+                     "opt": tree.map_tree(lambda _: sharding.replicated(mesh), state["opt"]),
+                     "rng": sharding.replicated(mesh)}
+        (restored, wall) = synced_wall(lambda: driver.ckpt.restore(step, state,
+                                                                   shardings=shardings))
+    same2 = [torch.equal(d.to_local().cpu(), a.cpu())
+             for a, d in zip(tree.leaves(state), tree.leaves(restored))]
+    out.update(restore_layers=DIST_RESTORE_LAYERS, restore_step=step,
+               restore_leaves=len(same2), restore_bit_identical=all(same2),
+               restore_wall_s=wall)
+    if not (out["layout_bit_identical"] and out["restore_bit_identical"]):
+        raise AssertionError(f"distributed layouts / restore: not bit for bit: {out}")
+    say(f"distributed restore: {json.dumps(out)}")
+    del state, restored, driver
+    free_card()
+    return out
+
+
+def dist_allreduce() -> dict:
+    """(c): ``DIST_ROUNDS`` rounds of ``compressed_psum_grads`` over the
+    one-rank NCCL group on qwen3-0.6b's full-width gradients (float32
+    copies) scaled by (1 + 0.05 i); accumulated means plus the residual
+    within ``DIST_TOL`` (relative L2, each leaf) of the exact sum."""
+    from repro_torch.models import LM
+
+    arch = lm_arch(DIST_LM)
+    params = LM(arch).init(torch.Generator(device=DEVICE).manual_seed(67), device=DEVICE)
+    opt = train_steps.make_optimizer(arch)
+    batch = batch_for(arch, DataCfg(seed=3, batch=1, seq_len=DIST_GRAD_SEQ), 0, device=DEVICE)
+    _, _, grads = train_steps.make_train_step(arch, opt).loss_and_grads(params, batch)
+    del params, batch
+    grads = tree.map_tree(lambda g: g.to(torch.float32), grads)
+    free_card()
+    resid = collectives.zeros_residuals(grads)
+    acc = tree.map_tree(torch.zeros_like, grads)
+    exact = tree.map_tree(torch.zeros_like, grads)
+    walls = []
+    for i in range(DIST_ROUNDS):
+        gi = tree.map_tree(lambda g: g * (1 + 0.05 * i), grads)
+        (mean, resid), w = synced_wall(lambda: collectives.compressed_psum_grads(gi, resid))
+        walls.append(w)
+        for a, e, m, g in zip(*map(tree.leaves, (acc, exact, mean, gi))):
+            a.add_(m)
+            e.add_(g)
+        del gi, mean
+    rel = [float(torch.linalg.norm(a + r - e) / torch.linalg.norm(e))
+           for a, r, e in zip(*map(tree.leaves, (acc, resid, exact))) if e.any()]
+    numel = sum(g.numel() for g in tree.leaves(grads))
+    n_leaves = len(tree.leaves(grads))
+    out = dict(arch=arch.name, seq=DIST_GRAD_SEQ, batch=1, rounds=DIST_ROUNDS, leaves=n_leaves,
+               numel=numel, rel_l2_max=max(rel), tol=DIST_TOL,
+               round_ms_median=statistics.median(walls[1:]) * 1e3,
+               round_ms_first=walls[0] * 1e3,
+               payload_bytes_int8=numel + 4 * n_leaves, payload_bytes_fp32=4 * numel)
+    if not out["rel_l2_max"] <= DIST_TOL:
+        raise AssertionError(f"distributed all-reduce: {out}")
+    say(f"distributed all-reduce: {json.dumps(out)}")
+    del grads, resid, acc, exact
+    free_card()
+    return out
+
+
+def pipe_layer(cfg):
+    """``layer_fn`` of the W8A8 pipeline: a microbatch's activation is its
+    tokens with the activated conditioning appended as one more row (both
+    d wide), so ``c_act`` travels with its microbatch."""
+    def layer(bp, h):
+        x = dit_int8.block(bp, h[:, :-1].contiguous(), h[:, -1].contiguous(), cfg)
+        return torch.cat([x, h[:, -1:]], dim=1)
+    return layer
+
+
+def pipe_sequential(blocks, x, c_act, cfg, m) -> torch.Tensor:
+    """The W8A8 block stack run on each of ``m`` microbatches in turn."""
+    layers = tree.map_tree(lambda a: a.unbind(0), blocks)
+    outs = []
+    for xj, cj in zip(x.chunk(m), c_act.chunk(m)):
+        for i in range(cfg.n_layers):
+            xj = dit_int8.block(tree.map_tree(lambda a, i=i: a[i], layers), xj, cj, cfg)
+        outs.append(xj)
+    return torch.cat(outs)
+
+
+def dist_pipeline() -> dict:
+    """(d): DiT-XL/2's W8A8 blocks through ``pipeline_apply`` over
+    ``PIPE_STAGES`` stages on the one card, ``PIPE_MICRO`` microbatches of
+    ``PIPE_ROWS`` rows; bit for bit against the sequential stack on each
+    microbatch; every ``int8_matmul`` launch held to its plain version."""
+    cfg = CFG
+    params = dit.init(torch.Generator(device=DEVICE).manual_seed(71), cfg, device=DEVICE)
+    blocks = dit_int8.quantize_params(params, cfg)["blocks"]
+    del params
+    free_card()
+    g = torch.Generator(device=DEVICE).manual_seed(73)
+    b = PIPE_MICRO * PIPE_ROWS
+    x = torch.randn((b, cfg.n_tokens, cfg.d_model), generator=g, device=DEVICE)
+    c_act = torch.nn.functional.silu(torch.randn((b, cfg.d_model), generator=g, device=DEVICE))
+    h = torch.cat([x, c_act[:, None]], dim=1)
+    stages = (torch.device(DEVICE),) * PIPE_STAGES
+    layer = pipe_layer(cfg)
+
+    def run_pipe():
+        return pipeline.pipeline_apply(layer, blocks, h, stages=stages,
+                                       n_microbatches=PIPE_MICRO)
+
+    with int8_held_exactly("pipeline") as held:
+        zero_counts()
+        got = run_pipe()
+        launches = launch_counts()
+    want = pipe_sequential(blocks, x, c_act, cfg, PIPE_MICRO)
+    n_products = PIPE_MICRO * cfg.n_layers * 7
+    out = dict(stages=PIPE_STAGES, microbatches=PIPE_MICRO, rows=PIPE_ROWS, layers=cfg.n_layers,
+               bit_identical=torch.equal(got[:, :-1], want) and torch.equal(got[:, -1], c_act),
+               finite=bool(torch.isfinite(got).all()),
+               launches={k: v for k, v in launches.items() if v}, held_exact_per_shape=held,
+               want_launches=n_products)
+    runs = {"pipeline": run_pipe,
+            "sequential": lambda: pipe_sequential(blocks, x, c_act, cfg, PIPE_MICRO)}
+    walls = {k: [] for k in runs}
+    for order in (("pipeline", "sequential"), ("sequential", "pipeline")) * 3:
+        for k in order:
+            walls[k].append(synced_wall(runs[k])[1])
+    out["wall_ms"] = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    out["wall_ms_each"] = {k: [w * 1e3 for w in v] for k, v in walls.items()}
+    out["device"] = {k: device_profile(fn) for k, fn in runs.items()}
+    out["note"] = ("one card: every stage on cuda:0, so the pipeline's wall against the "
+                   "sequential one is the schedule's own cost, not a pipelining gain")
+    if not (out["bit_identical"] and out["finite"]):
+        raise AssertionError(f"distributed pipeline: not bit for bit: {out}")
+    short = {k: launches[k] for k in PIPE_KERNELS if launches[k] != n_products}
+    if short or sum(held.values()) != n_products:
+        raise AssertionError(f"distributed pipeline: launches {short}, held "
+                             f"{sum(held.values())}, want {n_products}")
+    say(f"distributed pipeline: {json.dumps(out)}")
+    del blocks, x, c_act, h, got, want
+    free_card()
+    return out
+
+
+def phase_distributed() -> dict:
+    """The rest of ``distributed/`` on one rank: (a) the sharding rules of
+    every config, (b) layouts and the elastic restore, (c) the compressed
+    all-reduce, (d) the W8A8 pipeline."""
+    free_card()
+    t_phase = time.perf_counter()
+    zero_counts()
+    out: dict = {}
+    walls = {}
+    with mesh_mod.local_group(DEVICE):
+        t = time.perf_counter()
+        out["rules"] = dist_rules()
+        walls["a"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["restore"] = dist_restore(mesh_mod.make_test_mesh())
+        walls["b"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["allreduce"] = dist_allreduce()
+        walls["c"] = time.perf_counter() - t
+    if any(launch_counts().values()):  # (a) - (c) reach no TPU kernel
+        raise AssertionError(f"distributed: a Ditto kernel launched: {launch_counts()}")
+    t = time.perf_counter()
+    out["pipeline"] = dist_pipeline()
+    walls["d"] = time.perf_counter() - t
+    out["part_walls_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -2774,6 +3062,7 @@ def main() -> int:
     lm_training = phase_lm_train()
     moe_path = phase_moe()
     recurrent = phase_recurrent()
+    distributed = phase_distributed()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -2803,6 +3092,7 @@ def main() -> int:
     say("lm_train: " + json.dumps(lm_training))
     say("moe: " + json.dumps(moe_path))
     say("recurrent: " + json.dumps(recurrent))
+    say("distributed: " + json.dumps(distributed))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

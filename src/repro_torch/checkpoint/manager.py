@@ -16,9 +16,10 @@ its dtype in the meta, and restored bit for bit (the reference widens it
 to float32, also losslessly).
 
 Restore loads every leaf on the host and moves it to the like-tree leaf's
-device and dtype. ``save_async`` copies every leaf to host memory before
-it returns, so the next step may update the tensors in place, and writes
-to disk on a background thread so the train loop is not blocked.
+device and dtype, then, given target layouts, lays it out on their mesh.
+``save_async`` copies every leaf to host memory before it returns, so the
+next step may update the tensors in place, and writes to disk on a
+background thread so the train loop is not blocked.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import tree as tr
+from ..distributed.sharding import layout
 
 
 def _flatten(tree) -> dict:
@@ -123,9 +125,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like_tree):
+    def restore(self, step: int, like_tree, *, shardings=None):
         """Restore into the structure of ``like_tree``: each leaf on the like
-        leaf's device, cast to its dtype."""
+        leaf's device, cast to its dtype. ``shardings``: an optional tree of
+        target layouts (``distributed/sharding.py:Layout``, e.g. from
+        ``param_shardings``) with the like-tree's keys; each leaf is then
+        laid out on its mesh as a DTensor (the elastic restore onto a new
+        mesh)."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         if not os.path.exists(os.path.join(path, "COMMIT")):
             raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -138,4 +144,7 @@ class CheckpointManager:
         with np.load(os.path.join(path, "arrays.npz")) as data:
             restored = [_load(data[k], meta["dtypes"][k]).to(like.device, like.dtype)
                         for k, like in flat_like.items()]
+        if shardings is not None:
+            target = _flatten(shardings)
+            restored = [layout(v, target[k]) for k, v in zip(flat_like, restored)]
         return tr.unflatten_like(like_tree, restored)

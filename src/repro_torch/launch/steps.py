@@ -20,8 +20,13 @@ The LM step keeps the reference's: the loss is the float32 cross-entropy
 plus ``aux_weight`` times the MoE layers' aux loss; the batch splits into
 ``_effective_accum`` microbatches along dim 1 of a (B / a, a, ...)
 reshape (microbatch i holds rows i, i + a, ...), whose gradients add up in
-``arch.accum_dtype`` and are divided by their count. ``shard=`` and
-``param_axes`` come with ``distributed/`` (ROADMAP.md, queue 1, item 9).
+``arch.accum_dtype`` and are divided by their count.
+
+``param_axes`` gives the logical-axes tree of a config's params and their
+shapes without allocating them, for ``distributed/sharding.py``. The
+reference's ``shard=`` (a sharding constraint inside the jitted step) has
+no counterpart: PyTorch has no compiler that partitions a step from layout
+hints, and a step over DTensors is a design of its own (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..core import diffusion
 from ..data.synthetic import generator
 from ..kernels.common import resolve_device
 from ..models.lm import LM
+from ..nn import core as nncore
 from ..nn import dit as dit_mod
 from ..optim import AdamW, make_schedule
 
@@ -301,3 +307,38 @@ def init_state(arch: ArchConfig, seed: int, opt: AdamW, *, device=None) -> dict:
         params = LM(arch).init(gen, device=dev)
     return {"params": params, "opt": opt.init(params),
             "rng": torch.tensor(seed, dtype=torch.int64)}
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device. Initializers make their
+    tensors on their generator's device, so under it they allocate nothing
+    (``torch.randn`` takes a CPU generator for a meta tensor)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_axes(arch: ArchConfig, *, int8: bool = False):
+    """(logical-axes tree, shape tree) of the params of ``arch``, without
+    allocating them: the initializers run on the meta device under
+    ``nn/core.py:tagged``, so the shape tree's leaves are meta tensors (a
+    shape and a dtype; the reference's PRNG key has no counterpart: a meta
+    tensor draws nothing). ``int8``: the W8A8 serving tree of
+    ``models/dit_int8.quantize_params``, every leaf replicated (axes
+    ``()``)."""
+    gen = _MetaGenerator()
+    if arch.family == "diffusion":
+        dcfg = make_dit_model(arch)
+        with nncore.tagged():
+            tree = dit_mod.init(gen, dcfg, device="meta", dtype=torch_dtype(arch.param_dtype))
+        if int8:
+            from ..models import dit_int8
+
+            shapes = dit_int8.quantize_params(tree, dcfg)
+            return tr.map_tree(lambda _: (), shapes), shapes
+    else:
+        with nncore.tagged():
+            tree = LM(arch).init(gen, device="meta")
+    shapes, axes = nncore.split(tree)
+    return axes, shapes

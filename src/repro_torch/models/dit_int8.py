@@ -81,6 +81,31 @@ def _qdense(w8: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def block(bp: dict, x: torch.Tensor, c_act: torch.Tensor, cfg: dit_mod.DiTCfg) -> torch.Tensor:
+    """One DiT block on the int8 path: ``bp`` one layer's quantized params
+    (a slice of ``quantize_params(...)["blocks"]``), x (B, T, d) float32,
+    c_act (B, d) the activated conditioning. Every activation is quantized
+    per tensor, so the result depends on the rows ``x`` holds."""
+    b = x.shape[0]
+    nh, hd = cfg.n_heads, cfg.head_dim
+    # 1 / sqrt(hd) in float32 ops, as the reference computes it
+    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
+    mod = _qdense(bp["mod"]["w8"], c_act)
+    sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
+    h = dit_mod._modulate(dit_mod._ln(x), sh_a, sc_a)
+    q = _qdense(bp["attn"]["wq"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
+    k = _qdense(bp["attn"]["wk"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
+    v = _qdense(bp["attn"]["wv"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s, dim=-1)
+    a = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, cfg.n_tokens, nh * hd)
+    a = _qdense(bp["attn"]["wo"]["w8"], a)
+    x = x + g_a[:, None, :] * a
+    h = dit_mod._modulate(dit_mod._ln(x), sh_m, sc_m)
+    hmid = nncore.ACTIVATIONS["gelu"](_qdense(bp["mlp"]["wi"]["w8"], h))
+    return x + g_m[:, None, :] * _qdense(bp["mlp"]["wo"]["w8"], hmid)
+
+
 def apply(qparams, cfg: dit_mod.DiTCfg, latents, t, labels=None):
     """Mirrors nn.dit.apply with every linear on the int8 path."""
     b, hh, ww, ch = latents.shape
@@ -95,31 +120,10 @@ def apply(qparams, cfg: dit_mod.DiTCfg, latents, t, labels=None):
         c = c + qparams["label_embed"].to(torch.float32)[labels]
     c_act = F.silu(c)
 
-    nh, hd = cfg.n_heads, cfg.head_dim
-    # 1 / sqrt(hd) in float32 ops, as the reference computes it
-    scale = float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32)))
-    gelu = nncore.ACTIVATIONS["gelu"]
-
-    def block(x, bp):
-        mod = _qdense(bp["mod"]["w8"], c_act)
-        sh_a, sc_a, g_a, sh_m, sc_m, g_m = torch.chunk(mod, 6, dim=-1)
-        h = dit_mod._modulate(dit_mod._ln(x), sh_a, sc_a)
-        q = _qdense(bp["attn"]["wq"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
-        k = _qdense(bp["attn"]["wk"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
-        v = _qdense(bp["attn"]["wv"]["w8"], h).reshape(b, cfg.n_tokens, nh, hd)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-        p = torch.softmax(s, dim=-1)
-        a = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, cfg.n_tokens, nh * hd)
-        a = _qdense(bp["attn"]["wo"]["w8"], a)
-        x = x + g_a[:, None, :] * a
-        h = dit_mod._modulate(dit_mod._ln(x), sh_m, sc_m)
-        hmid = gelu(_qdense(bp["mlp"]["wi"]["w8"], h))
-        return x + g_m[:, None, :] * _qdense(bp["mlp"]["wo"]["w8"], hmid)
-
     layers = map_tree(lambda a: a.unbind(0), qparams["blocks"])
     x = x.to(torch.float32)
     for i in range(cfg.n_layers):  # the reference scans over the stacked blocks
-        x = block(x, map_tree(lambda a: a[i], layers))
+        x = block(map_tree(lambda a: a[i], layers), x, c_act, cfg)
 
     modf = _qdense(qparams["final_mod"]["w8"], c_act)
     shift, scl = torch.chunk(modf, 2, dim=-1)

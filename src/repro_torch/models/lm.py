@@ -62,10 +62,10 @@ RECURRENT = ("ssm", "hybrid")
 M_KEYS, S_KEYS = ("m_C", "m_n", "m_m"), ("s_c", "s_n", "s_h", "s_m")
 
 
-def _norm_init(cfg: ArchConfig, dim: int, dtype, device):
+def _norm_init(cfg: ArchConfig, dim: int, dtype, device, lead: tuple = ()):
     if cfg.norm == "rmsnorm":
-        return core.rmsnorm_init(dim, dtype=dtype, device=device)
-    return core.layernorm_init(dim, dtype=dtype, device=device)
+        return core.rmsnorm_init(dim, lead=lead, dtype=dtype, device=device)
+    return core.layernorm_init(dim, lead=lead, dtype=dtype, device=device)
 
 
 def _norm(cfg: ArchConfig, p, x):
@@ -150,8 +150,7 @@ class LM:
                 p["head"] = embedding.head_init(gen, cfg.d_model, self.vocab_padded, dtype=dt)
 
         def norm(lead):  # one a layer, stacked
-            return map_tree(lambda a: a.expand(lead + a.shape).clone(),
-                            _norm_init(cfg, cfg.d_model, dt, gen.device))
+            return _norm_init(cfg, cfg.d_model, dt, gen.device, lead)
 
         if cfg.family in STACK:
             lead = (cfg.n_layers,)

@@ -50,15 +50,15 @@ def init(gen: torch.Generator, cfg: AttentionCfg, *, lead: tuple = (),
     qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     kw = dict(bias=cfg.bias, lead=lead, dtype=dtype)
     p = {
-        "wq": core.dense_init(gen, cfg.d_model, qd, **kw),
-        "wk": core.dense_init(gen, cfg.d_model, kvd, **kw),
-        "wv": core.dense_init(gen, cfg.d_model, kvd, **kw),
-        "wo": core.dense_init(gen, qd, cfg.d_model, **kw),
+        "wq": core.dense_init(gen, cfg.d_model, qd, axes=("embed", "heads"), **kw),
+        "wk": core.dense_init(gen, cfg.d_model, kvd, axes=("embed", "kv"), **kw),
+        "wv": core.dense_init(gen, cfg.d_model, kvd, axes=("embed", "kv"), **kw),
+        "wo": core.dense_init(gen, qd, cfg.d_model, axes=("heads", "embed"), **kw),
     }
     if cfg.qk_norm:
         for name in ("q_norm", "k_norm"):
-            p[name] = {"scale": torch.ones(lead + (cfg.head_dim,), dtype=dtype,
-                                           device=gen.device)}
+            p[name] = core.rmsnorm_init(cfg.head_dim, lead=lead, dtype=dtype,
+                                        device=gen.device)
     return p
 
 

@@ -2,16 +2,21 @@
 
 Mirror of the parts of ``src/repro/nn/core.py`` that the DiT and the LM
 reach (conv and group norm have no caller in the port).
-Params are nested dicts of tensors. :class:`Param` (an array tagged with
-logical sharding axes in the reference) is kept so that apply functions
-accept a tagged tree as well as a plain one — ``val`` normalizes — but
-``init`` functions return plain tensors: a single card has no sharding.
+Params are nested dicts of tensors. Every initializer returns plain
+tensors, unless it is called inside :func:`tagged`: then each parameter
+comes as a :class:`Param`, the tensor tagged with the reference's logical
+axis names, and ``split(tree)`` separates the two so that
+``distributed/sharding.py`` can map the names to a mesh layout
+(``launch/steps.py:param_axes``). Apply functions accept a tagged tree as
+well as a plain one — ``val`` normalizes.
 
 Initializers draw from an explicit ``torch.Generator`` and create tensors
 on its device.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable
@@ -19,6 +24,8 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from ..tree import map_tree
 
 
 @dataclasses.dataclass
@@ -28,9 +35,44 @@ class Param:
     value: torch.Tensor
     axes: tuple[str | None, ...]
 
+    def to(self, *args, **kwargs) -> "Param":
+        """``Tensor.to`` on the value; the tag stays."""
+        return Param(self.value.to(*args, **kwargs), self.axes)
+
 
 def val(x: Any) -> torch.Tensor:
     return x.value if isinstance(x, Param) else x
+
+
+# The logical axes of the stacked leading dims an initializer's ``lead``
+# adds: a stack of layers is 'layer', a stack of super-blocks of layers
+# ('super', 'layer'), as the reference's stacking retags them.
+STACK_AXES = ("super", "layer")
+_TAGGING = contextvars.ContextVar("tagging", default=False)
+
+
+@contextlib.contextmanager
+def tagged():
+    """Initializers called inside return every parameter as a
+    :class:`Param` tagged with the reference's logical axes."""
+    token = _TAGGING.set(True)
+    try:
+        yield
+    finally:
+        _TAGGING.reset(token)
+
+
+def tag(value: torch.Tensor, axes: tuple, lead: tuple = ()):
+    """A fresh parameter as an initializer returns it: under :func:`tagged`,
+    ``Param(value, stack axes of lead + axes)``; else ``value`` itself."""
+    if not _TAGGING.get():
+        return value
+    return Param(value, STACK_AXES[len(STACK_AXES) - len(lead):] + tuple(axes))
+
+
+def split(tree: Any) -> tuple[Any, Any]:
+    """A tree of Params split into (values, logical-axes) trees."""
+    return map_tree(val, tree), map_tree(lambda p: p.axes, tree)
 
 
 def divide(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -69,11 +111,14 @@ def zeros_init(gen: torch.Generator, shape, dtype=torch.float32):
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, bias: bool = False,
-               init: Callable = lecun_init, lead: tuple = (), dtype=torch.float32) -> dict:
-    """``lead`` stacks that many independent layers on leading dims."""
-    p = {"w": init(gen, lead + (in_dim, out_dim), dtype=dtype)}
+               axes: tuple = (None, None), init: Callable = lecun_init, lead: tuple = (),
+               dtype=torch.float32) -> dict:
+    """``lead`` stacks that many independent layers on leading dims;
+    ``axes`` names the (in, out) dims for :func:`tagged`."""
+    p = {"w": tag(init(gen, lead + (in_dim, out_dim), dtype=dtype), axes, lead)}
     if bias:
-        p["b"] = torch.zeros(lead + (out_dim,), dtype=dtype, device=gen.device)
+        p["b"] = tag(torch.zeros(lead + (out_dim,), dtype=dtype, device=gen.device),
+                     (axes[1],), lead)
     return p
 
 
@@ -111,8 +156,8 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm_init(dim: int, *, dtype=torch.float32, device=None) -> dict:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def rmsnorm_init(dim: int, *, lead: tuple = (), dtype=torch.float32, device=None) -> dict:
+    return {"scale": tag(torch.ones(lead + (dim,), dtype=dtype, device=device), (None,), lead)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -123,10 +168,11 @@ def rmsnorm(params: dict, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor
     return (y * val(params["scale"]).to(torch.float32)).to(dtype)
 
 
-def layernorm_init(dim: int, *, bias: bool = True, dtype=torch.float32, device=None) -> dict:
-    p = {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def layernorm_init(dim: int, *, bias: bool = True, lead: tuple = (), dtype=torch.float32,
+                   device=None) -> dict:
+    p = {"scale": tag(torch.ones(lead + (dim,), dtype=dtype, device=device), (None,), lead)}
     if bias:
-        p["b"] = torch.zeros((dim,), dtype=dtype, device=device)
+        p["b"] = tag(torch.zeros(lead + (dim,), dtype=dtype, device=device), (None,), lead)
     return p
 
 

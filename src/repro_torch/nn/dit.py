@@ -83,22 +83,26 @@ def init(gen: torch.Generator, cfg: DiTCfg, *, device=None, dtype=torch.float32)
     dev = resolve_device(device)
     d = cfg.d_model
     p: dict = {
-        "patch_embed": core.dense_init(gen, cfg.patch_dim, d, bias=True, dtype=dtype),
-        "pos_embed": core.normal_init(gen, (cfg.n_tokens, d), stddev=0.02, dtype=dtype),
-        "t_mlp1": core.dense_init(gen, 256, d, bias=True, dtype=dtype),
-        "t_mlp2": core.dense_init(gen, d, d, bias=True, dtype=dtype),
-        "final_mod": core.dense_init(gen, d, 2 * d, bias=True, dtype=dtype),
-        "final_out": core.dense_init(gen, d, cfg.patch_dim, bias=True, dtype=dtype),
+        "patch_embed": core.dense_init(gen, cfg.patch_dim, d, bias=True, axes=(None, "embed"),
+                                       dtype=dtype),
+        "pos_embed": core.tag(core.normal_init(gen, (cfg.n_tokens, d), stddev=0.02, dtype=dtype),
+                              (None, "embed")),
+        "t_mlp1": core.dense_init(gen, 256, d, bias=True, axes=(None, "embed"), dtype=dtype),
+        "t_mlp2": core.dense_init(gen, d, d, bias=True, axes=("embed", "embed2"), dtype=dtype),
+        "final_mod": core.dense_init(gen, d, 2 * d, bias=True, axes=("embed", None),
+                                     dtype=dtype),
+        "final_out": core.dense_init(gen, d, cfg.patch_dim, bias=True, axes=("embed", None),
+                                     dtype=dtype),
     }
     if cfg.n_classes:
-        p["label_embed"] = core.normal_init(gen, (cfg.n_classes + 1, d), stddev=0.02,
-                                            dtype=dtype)
+        p["label_embed"] = core.tag(core.normal_init(gen, (cfg.n_classes + 1, d), stddev=0.02,
+                                                     dtype=dtype), (None, "embed"))
     lead = (cfg.n_layers,)  # stacked per-layer params
     p["blocks"] = {
         "attn": attn.init(gen, _attn_cfg(cfg), lead=lead, dtype=dtype),
         "mlp": mlp.init(gen, _mlp_cfg(cfg), lead=lead, dtype=dtype),
-        "mod": core.dense_init(gen, d, 6 * d, bias=True, init=core.zeros_init, lead=lead,
-                               dtype=dtype),
+        "mod": core.dense_init(gen, d, 6 * d, bias=True, axes=("embed", None),
+                               init=core.zeros_init, lead=lead, dtype=dtype),
     }
     return map_tree(lambda a: a.to(dev), p)
 

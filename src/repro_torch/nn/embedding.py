@@ -9,7 +9,8 @@ from .core import val
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int, *, dtype=torch.float32) -> dict:
-    return {"table": core.normal_init(gen, (vocab, d_model), stddev=0.02, dtype=dtype)}
+    return {"table": core.tag(core.normal_init(gen, (vocab, d_model), stddev=0.02, dtype=dtype),
+                              ("vocab", "embed"))}
 
 
 def embed(params: dict, tokens: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
@@ -22,7 +23,8 @@ def embed(params: dict, tokens: torch.Tensor, *, scale: float = 1.0) -> torch.Te
 
 
 def head_init(gen: torch.Generator, d_model: int, vocab: int, *, dtype=torch.float32) -> dict:
-    return {"w": core.normal_init(gen, (d_model, vocab), stddev=0.02, dtype=dtype)}
+    return {"w": core.tag(core.normal_init(gen, (d_model, vocab), stddev=0.02, dtype=dtype),
+                          ("embed", "vocab"))}
 
 
 def logits(params: dict | None, x: torch.Tensor, *,

@@ -27,13 +27,13 @@ def init(gen: torch.Generator, cfg: MlpCfg, *, lead: tuple = (), dtype=torch.flo
     kw = dict(bias=cfg.bias, lead=lead, dtype=dtype)
     if cfg.act in GATED:
         return {
-            "wg": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
-            "wu": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
-            "wd": core.dense_init(gen, cfg.d_ff, cfg.d_model, **kw),
+            "wg": core.dense_init(gen, cfg.d_model, cfg.d_ff, axes=("embed", "mlp"), **kw),
+            "wu": core.dense_init(gen, cfg.d_model, cfg.d_ff, axes=("embed", "mlp"), **kw),
+            "wd": core.dense_init(gen, cfg.d_ff, cfg.d_model, axes=("mlp", "embed"), **kw),
         }
     return {
-        "wi": core.dense_init(gen, cfg.d_model, cfg.d_ff, **kw),
-        "wo": core.dense_init(gen, cfg.d_ff, cfg.d_model, **kw),
+        "wi": core.dense_init(gen, cfg.d_model, cfg.d_ff, axes=("embed", "mlp"), **kw),
+        "wo": core.dense_init(gen, cfg.d_ff, cfg.d_model, axes=("mlp", "embed"), **kw),
     }
 
 

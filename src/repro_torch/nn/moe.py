@@ -66,22 +66,29 @@ def init(gen: torch.Generator, cfg: MoeCfg, *, lead: tuple = (), dtype=torch.flo
     float32 whatever ``dtype`` is."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
 
-    def stacked(shape):
+    def stacked(shape, axes):
         # the reference's lecun fan-in counts the expert axis as a
         # receptive field: e * (input dim)
-        return core.lecun_init(gen, lead + shape, dtype=dtype, fan_in=e * shape[1])
+        return core.tag(core.lecun_init(gen, lead + shape, dtype=dtype, fan_in=e * shape[1]),
+                        axes, lead)
 
+    if cfg.ep_ff_data:  # EP + the expert ff dim over 'data'
+        up_axes, down_axes = ("expert", None, "moe_ff"), ("expert", "moe_ff", None)
+    else:  # EP + FSDP over embed
+        up_axes, down_axes = ("expert", "embed", "mlp"), ("expert", "mlp", "embed")
     p = {
-        "router": core.dense_init(gen, d, e, lead=lead, dtype=torch.float32),
-        "wg": stacked((e, d, f)),
-        "wu": stacked((e, d, f)),
-        "wd": stacked((e, f, d)),
+        "router": core.dense_init(gen, d, e, axes=("embed", None), lead=lead,
+                                  dtype=torch.float32),
+        "wg": stacked((e, d, f), up_axes),
+        "wu": stacked((e, d, f), up_axes),
+        "wd": stacked((e, f, d), down_axes),
     }
     if cfg.d_ff_shared:
         p["shared"] = mlp.init(gen, mlp.MlpCfg(d, cfg.d_ff_shared, act=cfg.act), lead=lead,
                                dtype=dtype)
         if cfg.shared_gate:
-            p["shared_gate"] = core.dense_init(gen, d, 1, lead=lead, dtype=dtype)
+            p["shared_gate"] = core.dense_init(gen, d, 1, axes=("embed", None), lead=lead,
+                                               dtype=dtype)
     if cfg.d_ff_dense:
         p["dense"] = mlp.init(gen, mlp.MlpCfg(d, cfg.d_ff_dense, act=cfg.act), lead=lead,
                               dtype=dtype)

@@ -64,21 +64,23 @@ def init(gen: torch.Generator, cfg: MambaCfg, *, lead: tuple = (), dtype=torch.f
     dev = gen.device
 
     def heads(a):  # one a layer, stacked
-        return a.expand(lead + a.shape).clone()
+        return core.tag(a.expand(lead + a.shape).clone(), (None,), lead)
 
     return {
-        "wz": core.dense_init(gen, d, di, **kw),
-        "wx": core.dense_init(gen, d, di, **kw),
-        "wB": core.dense_init(gen, d, gn, **kw),
-        "wC": core.dense_init(gen, d, gn, **kw),
-        "wdt": core.dense_init(gen, d, cfg.n_heads, **kw),
-        "conv_w": core.lecun_init(gen, lead + (cfg.conv_width, conv_dim), dtype=dtype),
-        "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev),
+        "wz": core.dense_init(gen, d, di, axes=("embed", "mlp"), **kw),
+        "wx": core.dense_init(gen, d, di, axes=("embed", "mlp"), **kw),
+        "wB": core.dense_init(gen, d, gn, axes=("embed", None), **kw),
+        "wC": core.dense_init(gen, d, gn, axes=("embed", None), **kw),
+        "wdt": core.dense_init(gen, d, cfg.n_heads, axes=("embed", None), **kw),
+        "conv_w": core.tag(core.lecun_init(gen, lead + (cfg.conv_width, conv_dim), dtype=dtype),
+                           (None, "mlp"), lead),
+        "conv_b": core.tag(torch.zeros(lead + (conv_dim,), dtype=dtype, device=dev), ("mlp",),
+                           lead),
         "A_log": heads(torch.log(torch.linspace(1.0, 16.0, cfg.n_heads, device=dev))),
         "D": heads(torch.ones((cfg.n_heads,), device=dev)),
         "dt_bias": heads(torch.zeros((cfg.n_heads,), device=dev)),
-        "norm": {"scale": torch.ones(lead + (di,), dtype=dtype, device=dev)},
-        "wo": core.dense_init(gen, di, d, **kw),
+        "norm": core.rmsnorm_init(di, lead=lead, dtype=dtype, device=dev),
+        "wo": core.dense_init(gen, di, d, axes=("mlp", "embed"), **kw),
     }
 
 

@@ -73,15 +73,15 @@ def mlstm_init(gen: torch.Generator, cfg: XlstmCfg, *, lead: tuple = (),
     d, di = cfg.d_model, cfg.d_inner
     kw = dict(lead=lead, dtype=dtype)
     return {
-        "w_up": core.dense_init(gen, d, di, **kw),
-        "w_gate": core.dense_init(gen, d, di, **kw),
-        "wq": core.dense_init(gen, di, di, **kw),
-        "wk": core.dense_init(gen, di, di, **kw),
-        "wv": core.dense_init(gen, di, di, **kw),
-        "wi": core.dense_init(gen, di, cfg.n_heads, **kw),
-        "wf": core.dense_init(gen, di, cfg.n_heads, **kw),
-        "norm": {"scale": torch.ones(lead + (di,), dtype=dtype, device=gen.device)},
-        "w_down": core.dense_init(gen, di, d, **kw),
+        "w_up": core.dense_init(gen, d, di, axes=("embed", "mlp"), **kw),
+        "w_gate": core.dense_init(gen, d, di, axes=("embed", "mlp"), **kw),
+        "wq": core.dense_init(gen, di, di, axes=("mlp", "heads"), **kw),
+        "wk": core.dense_init(gen, di, di, axes=("mlp", "heads"), **kw),
+        "wv": core.dense_init(gen, di, di, axes=("mlp", "heads"), **kw),
+        "wi": core.dense_init(gen, di, cfg.n_heads, axes=("mlp", None), **kw),
+        "wf": core.dense_init(gen, di, cfg.n_heads, axes=("mlp", None), **kw),
+        "norm": core.rmsnorm_init(di, lead=lead, dtype=dtype, device=gen.device),
+        "w_down": core.dense_init(gen, di, d, axes=("mlp", "embed"), **kw),
     }
 
 
@@ -224,15 +224,17 @@ def slstm_init(gen: torch.Generator, cfg: XlstmCfg, *, lead: tuple = (),
     the reference's head-local ``Param``s."""
     d = cfg.d_model
     hd, nh = cfg.s_head_dim, cfg.n_heads
-    p = {"norm": {"scale": torch.ones(lead + (d,), dtype=dtype, device=gen.device)}}
+    p = {"norm": core.rmsnorm_init(d, lead=lead, dtype=dtype, device=gen.device)}
     for g in GATES:
-        p[f"w{g}"] = core.dense_init(gen, d, d, lead=lead, dtype=dtype)
+        p[f"w{g}"] = core.dense_init(gen, d, d, axes=("embed", "heads"), lead=lead, dtype=dtype)
     for g in GATES:
-        p[f"r{g}"] = core.normal_init(gen, lead + (nh, hd, hd), stddev=1.0 / math.sqrt(hd),
-                                      dtype=dtype)
+        p[f"r{g}"] = core.tag(core.normal_init(gen, lead + (nh, hd, hd),
+                                               stddev=1.0 / math.sqrt(hd), dtype=dtype),
+                              (None, "heads", None), lead)
     f_ff = int(cfg.slstm_ffn_factor * d)
-    p["ffn_up"] = core.dense_init(gen, d, f_ff, lead=lead, dtype=dtype)
-    p["ffn_down"] = core.dense_init(gen, f_ff, d, lead=lead, dtype=dtype)
+    p["ffn_up"] = core.dense_init(gen, d, f_ff, axes=("embed", "mlp"), lead=lead, dtype=dtype)
+    p["ffn_down"] = core.dense_init(gen, f_ff, d, axes=("mlp", "embed"), lead=lead,
+                                    dtype=dtype)
     return p
 
 
