@@ -230,7 +230,24 @@ Phases (any failure raises and the script exits non-zero):
              equal to the plain version; the walls of both (on one card,
              the schedule's own cost) and their device activities and
              time (``torch.profiler``).
-13. times  — each kernel on the inputs the slice gave it (the last call at
+13. launch — the launch tooling: (a) ``launch/dryrun.py``'s one-card
+             record of every (arch, shape) cell at full width, at the
+             batches the earlier phases cut the cells to (the recurrent
+             families' ``prefill_32k`` and ``train_4k`` also at S = 512),
+             counted on fake tensors in worker processes that cannot see
+             the card, and the layout records of both production meshes
+             here, the card's memory unmoved; (b) the dry run held against
+             the card on qwen3-0.6b's ``prefill_32k`` (B = 1),
+             ``decode_32k`` (B = 16, 32768 slots) and ``train_4k`` (B = 4)
+             and DiT-XL/2's float32 and W8A8 denoiser (B = 2): the
+             analyzer's count on the card's tensors equal to the fake
+             count exactly (FLOPs, bytes, ``int8_matmul``'s recorded work),
+             no measured wall below its roofline bound, the predicted peak
+             within 20 % of the measured one (the bytes held before the
+             step that it does not take as an argument subtracted), the
+             hand formulas' FLOPs beside the count, and the W8A8 step's
+             201 products held to the plain version exactly.
+14. times  — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -241,7 +258,7 @@ Phases (any failure raises and the script exits non-zero):
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
 ``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``,
-``recurrent: {...}`` and ``distributed: {...}`` lines,
+``recurrent: {...}``, ``distributed: {...}`` and ``launch: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
@@ -275,6 +292,7 @@ from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch.train import TrainDriver  # noqa: E402
@@ -286,8 +304,6 @@ from repro_torch.serve import (CompiledRunnerCache, DispatchFailed, Fault,  # no
 from repro_torch.serve import cache as serve_cache  # noqa: E402
 from repro_torch.sim import harness  # noqa: E402
 
-INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak (data sheet)
-BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 STEPS = 20
 B = 2
 DEVICE = "cuda"
@@ -1458,7 +1474,6 @@ def phase_mesh(params, sched) -> dict:
 TRAIN_ARCH = configs.get("dit-xl2")  # bf16 params, as the config says
 TRAIN_BATCH = 32
 TRAIN_STEPS = 20
-FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 Q8_BATCH = 2
 Q8_KERNELS = ("int8_matmul",)  # the W8A8 step's products
 RESUME_LAYERS = 2  # full width, cut depth: small checkpoints
@@ -1554,7 +1569,7 @@ def phase_train() -> dict:
         step_walls_s=walls, step_wall_s_median=step_s, samples_per_s=TRAIN_BATCH / step_s,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30, held_before_gib=held,
         flop_per_step=flops, tflops=flops / step_s / 1e12,
-        fp32_peak_share=flops / step_s / FP32_FLOPS_PER_S)
+        fp32_peak_share=flops / step_s / roofline.PEAK_FLOPS_FP32)
     say(f"train: DiT-XL/2 {cfg.n_layers} x {cfg.d_model}, {n_params / 1e6:.1f} M params "
         f"({arch.param_dtype}), B = {TRAIN_BATCH}, {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (last 5 mean {statistics.mean(losses[-5:]):.4f}); median step "
@@ -1562,7 +1577,7 @@ def phase_train() -> dict:
         f"{out['train']['peak_gib']:.2f} GiB; {flops / 1e12:.2f} TFLOP a step (3 B [L (T (24 d^2 "
         f"+ 4 T d) + 12 d^2) + 4 T p d + 2 (256 d + 3 d^2)]: matmuls, forward and backward), "
         f"{flops / step_s / 1e12:.2f} TFLOP/s = "
-        f"{100 * flops / step_s / FP32_FLOPS_PER_S:.1f} % of the fp32 peak")
+        f"{100 * flops / step_s / roofline.PEAK_FLOPS_FP32:.1f} % of the fp32 peak")
 
     # ---- the W8A8 step on the trained weights, against the float step
     params = state["params"]
@@ -1964,7 +1979,6 @@ LMT_LAYERS = 2  # (b) remat on / off and (c) the restart: full width, depth 2
 LMT_REMAT_TOL = 1e-3  # relative, bf16 (the two runs compute the same ops)
 LMT_RESUME_BATCH, LMT_RESUME_SEQ, LMT_RESUME_STEPS = 2, 1024, 8
 LMT_CPU_TOL = 1e-4  # (d): the card's smoke step against the CPU's, float32
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 
 
 def lm_train_flops(arch: configs.ArchConfig, vocab_padded: int, batch: int, seq: int) -> int:
@@ -2043,14 +2057,14 @@ def phase_lm_train() -> dict:
                         step_walls_s=walls, step_wall_s_median=step_s,
                         tokens_per_s=batch * LMT_SEQ / step_s, peak_gib=peak,
                         flop_per_step=flops, tflops=flops / step_s / 1e12,
-                        bf16_peak_share=flops / step_s / BF16_FLOPS_PER_S)
+                        bf16_peak_share=flops / step_s / roofline.PEAK_FLOPS)
     say(f"lm_train: {arch.name} {arch.n_layers} x {arch.d_model}, {n_params / 1e6:.1f} M "
         f"params ({arch.param_dtype}), B = {batch} (the cell's {cell_b} cut; refused: "
         f"{[r['batch'] for r in refused]}), S = {LMT_SEQ}, {LMT_STEPS} steps: loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (last 3 mean {statistics.mean(losses[-3:]):.4f}); "
         f"median step {step_s * 1e3:.1f} ms (the first {walls[0] * 1e3:.1f}), "
         f"{batch * LMT_SEQ / step_s:.0f} tokens/s; peak {peak:.2f} GiB; "
-        f"{flops / 1e12:.1f} TFLOP a step = {100 * flops / step_s / BF16_FLOPS_PER_S:.1f} % of "
+        f"{flops / 1e12:.1f} TFLOP a step = {100 * flops / step_s / roofline.PEAK_FLOPS:.1f} % of "
         f"the bf16 dense peak")
     del state
     free_card()
@@ -2688,19 +2702,6 @@ PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 4  # (d): 4 stages of 7 blocks, B = 1
 PIPE_KERNELS = ("int8_matmul",)
 
 
-def sharded_bytes(axes_tree, shape_tree, rules, mesh) -> int:
-    """Parameter bytes one device of ``mesh`` holds under ``spec_for``."""
-    sizes = sharding.mesh_axes(mesh)
-    total = 0
-    for axes, s in zip(tree.leaves(axes_tree), tree.leaves(shape_tree)):
-        split = 1
-        for entry in sharding.spec_for(axes, tuple(s.shape), rules, mesh):
-            for a in (entry,) if isinstance(entry, str) else entry or ():
-                split *= sizes[a]
-        total += s.numel() * s.element_size() // split
-    return total
-
-
 def dist_rules() -> dict:
     """(a): ``param_axes`` and ``spec_for`` for every config at full width on
     both production meshes, with no card memory allocated."""
@@ -2721,7 +2722,7 @@ def dist_rules() -> dict:
                      for a, s in zip(tree.leaves(axes), tree.leaves(shapes))]
             key = "x".join(map(str, mesh.axis_sizes))
             row[f"sharded_{key}"] = sum(any(e is not None for e in sp) for sp in specs)
-            row[f"per_chip_gib_{key}"] = sharded_bytes(axes, shapes, rules, mesh) / 2**30
+            row[f"per_chip_gib_{key}"] = sharding.sharded_bytes(axes, shapes, rules, mesh) / 2**30
         rows[name] = row
     q_axes, q_shapes = train_steps.param_axes(configs.get("dit-xl2"), int8=True)
     torch.cuda.synchronize()
@@ -2928,6 +2929,267 @@ def phase_distributed() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ launch
+# (a): one batch a cell, the cuts the earlier phases run (PERF.md section 4);
+# a cell no phase runs takes the cut of its shape
+LAUNCH_BATCH = {"train_4k": LMT_BATCHES[0], "prefill_32k": LM_PREFILL_BATCH,
+                "decode_32k": LM_DECODE_BATCH, "long_500k": 1}
+LAUNCH_BATCH_OF = {("xlstm-125m", "train_4k"): REC_XL_TRAIN_BATCHES[0],
+                   ("xlstm-125m", "decode_32k"): REC_XL_DECODE_BATCH,
+                   ("zamba2-7b", "train_4k"): 1,  # one of the cut's 4 microbatches
+                   ("zamba2-7b", "decode_32k"): REC_ZB_DECODE_BATCH,
+                   ("dit-xl2", "train_4k"): TRAIN_BATCH}
+LAUNCH_DIT_BATCH = B  # the denoiser cells: the slice's B = 2
+# (a): the recurrent families' prefill_32k and train_4k run a few ops a token
+# (10-100 ms of counting a token on the host): cut to the dry run's
+# extrapolation base; the CPU's `dryrun --all` counts them whole
+LAUNCH_REC_SEQ = dryrun.EXTRAPOLATE_LEN
+LAUNCH_WORKERS = max(1, (os.cpu_count() or 2) - 1)  # (a): a process a core, the card hidden
+LAUNCH_PEAK_TOL = 0.2  # (b): predicted against measured peak, relative
+LAUNCH_TIMED = 3  # (b): timed runs a cell after the counted one (the LM prefill: 1)
+# (b): (arch, shape, batch, variant)
+LAUNCH_CHECKS = (
+    (LM_ARCH, "prefill_32k", LM_PREFILL_BATCH, ""),
+    (LM_ARCH, "decode_32k", LM_DECODE_BATCH, ""),
+    (LMT_ARCH, "train_4k", LMT_BATCHES[0], ""),
+    ("dit-xl2", "prefill_32k", LAUNCH_DIT_BATCH, ""),
+    ("dit-xl2", "prefill_32k", LAUNCH_DIT_BATCH, "int8"),
+)
+
+
+def launch_arch(name: str) -> configs.ArchConfig:
+    """The config a launch cell runs: DiT-XL/2 in float32, as the serving
+    phases run it; the LM configs as ``lm_arch`` gives them."""
+    if name == "dit-xl2":
+        return dataclasses.replace(configs.get(name), param_dtype="float32",
+                                   activation_dtype="float32")
+    return lm_arch(name)
+
+
+def launch_cells() -> list[tuple]:
+    """(a)'s cells: every (arch, shape) with its batch and sequence cut, the
+    slowest to count (the recurrent families' long cells) first."""
+    cells = []
+    for name in configs.names():
+        for shape in configs.SHAPES:
+            batch = LAUNCH_BATCH_OF.get((name, shape), LAUNCH_BATCH[shape])
+            if name == "dit-xl2" and shape != "train_4k":
+                batch = LAUNCH_DIT_BATCH
+            recurrent = configs.get(name).family in ("ssm", "hybrid")
+            seq = LAUNCH_REC_SEQ if recurrent and shape in ("train_4k", "prefill_32k") else None
+            cells.append((name, shape, batch, seq))
+    return sorted(cells, key=lambda c: (c[3] is None, c[1] != "train_4k"))
+
+
+def dry_cell(cell) -> dict:
+    """One (a) cell's one-card record (run in a worker process)."""
+    name, shape, batch, seq = cell
+    try:
+        return dryrun.run_cell(name, shape, mesh="1", batch=batch, seq=seq)
+    except Exception as e:  # noqa: BLE001 - the phase fails on any error record
+        return dict(arch=name, shape=shape, batch=batch, seq=seq, status="error",
+                    error=f"{type(e).__name__}: {e}")
+
+
+def launch_dry_all() -> dict:
+    """(a): the one-card dry run of every cell at full width, on fake
+    tensors in worker processes that cannot see the card, then the layout
+    records of both production meshes in this process; no card memory may
+    move."""
+    import multiprocessing
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the workers count on meta tensors
+    try:
+        pool = multiprocessing.get_context("spawn").Pool(LAUNCH_WORKERS)
+    finally:
+        if saved is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    with pool:
+        recs = pool.map(dry_cell, launch_cells(), chunksize=1)
+    one_card_s = time.perf_counter() - t
+    for rec in recs:
+        say(f"launch (a) {rec['arch']} {rec['shape']} B={rec.get('batch')} S={rec.get('seq')} "
+            f"{rec['status']}{dryrun.summary(rec)}")
+    t = time.perf_counter()
+    layouts = [dryrun.run_cell(name, shape, mesh=m)
+               for name in configs.names() for shape in configs.SHAPES
+               for m in ("16x16", "2x16x16")]
+    for rec in layouts:
+        say(f"launch (a) {rec['arch']} {rec['shape']} {rec['mesh']} "
+            f"{rec['status']}{dryrun.summary(rec)}")
+    torch.cuda.synchronize()
+    out = dict(cells=len(recs), ok=sum(r["status"] == "ok" for r in recs),
+               skip=sum(r["status"] == "skip" for r in recs),
+               layout=sum(r["status"] == "layout" for r in layouts),
+               fits=sum(bool(r.get("fits")) for r in recs),
+               one_card_wall_s=one_card_s, layout_wall_s=time.perf_counter() - t,
+               workers=LAUNCH_WORKERS,
+               allocated_delta=torch.cuda.memory_allocated() - held,
+               peak_delta=torch.cuda.max_memory_allocated() - held)
+    bad = [r for r in recs + layouts if r["status"] not in ("ok", "skip", "layout")]
+    if bad:
+        raise AssertionError(f"launch (a): cells failed: {bad}")
+    if out["allocated_delta"] or out["peak_delta"]:
+        raise AssertionError(f"launch (a): card memory moved: {out}")
+    say(f"launch (a): {json.dumps(out)}")
+    return out
+
+
+def launch_args(arch, shape, batch, variant):
+    """(step, args) of a (b) cell on the card: random weights and inputs of
+    ``input_specs``' shapes and dtypes."""
+    from repro_torch.models import LM
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    spec = configs.SHAPES[shape]
+    specs = configs.input_specs(arch, spec, batch_override=batch)
+
+    def real(t):
+        if t.dtype in (torch.int32, torch.int64):
+            hi = arch.n_classes if arch.family == "diffusion" else arch.vocab_size
+            return torch.randint(0, hi, tuple(t.shape), generator=g, dtype=t.dtype,
+                                 device=DEVICE)
+        return torch.randn(tuple(t.shape), generator=g, device=DEVICE).to(t.dtype)
+
+    batch_in = {k: real(v) for k, v in specs.items()}
+    if arch.family == "diffusion":
+        params = dit.init(g, train_steps.make_dit_model(arch), device=DEVICE,
+                          dtype=configs.torch_dtype(arch.param_dtype))
+        if variant == "int8":
+            params = dit_int8.quantize_params(params, train_steps.make_dit_model(arch))
+        batch_in["t"] = torch.rand((batch,), generator=g, device=DEVICE) * 999.0
+        return train_steps.make_denoise_step(arch, int8=variant == "int8"), (params, batch_in)
+    if spec.kind == "train":
+        opt = train_steps.make_optimizer(arch)
+        state = train_steps.init_state(arch, 0, opt, device=DEVICE)
+        return train_steps.make_train_step(arch, opt), (state, batch_in)
+    params = LM(arch).init(g, device=DEVICE)
+    if spec.kind == "prefill":
+        return train_steps.make_prefill_step(arch), (params, batch_in)
+    batch_in["pos"] = torch.tensor(LM_PROMPT, dtype=torch.int32, device=DEVICE)
+    cache = LM(arch).init_cache(batch, spec.seq_len, device=DEVICE)
+    return train_steps.make_decode_step(arch), (params, cache, batch_in)
+
+
+def formula_flops(arch, shape, batch) -> int | None:
+    """The matmul FLOPs of the hand formulas (``train_flops``,
+    ``lm_train_flops``) for a (b) cell: a forward is a third of a step."""
+    from repro_torch.models import LM
+
+    spec = configs.SHAPES[shape]
+    if arch.family == "diffusion":
+        return train_flops(train_steps.make_dit_model(arch), batch) // 3
+    if spec.kind == "decode":
+        return None
+    step = lm_train_flops(arch, LM(arch).vocab_padded, batch, spec.seq_len)
+    if spec.kind == "train":
+        return step
+    # a prefill's forward; its head runs on the last position alone
+    d, v = arch.d_model, LM(arch).vocab_padded
+    return step // 3 - 2 * batch * (spec.seq_len - 1) * d * v
+
+
+def launch_check(name, shape, batch, variant) -> dict:
+    """(b): one cell's dry run held against the card."""
+    arch = launch_arch(name)
+    rec = dryrun.run_cell(arch, shape, mesh="1", batch=batch, variant=variant)
+    free_card()
+    fn, args = launch_args(arch, shape, batch, variant)
+    # the analyzer on the card: the same ops, so the same counts exactly
+    real = op_analysis.analyze(fn, *args)
+    del real["out"]
+    cost = rec["cost"]
+    got = dict(flops=real["flops"], bytes=real["hbm_bytes"], kernels=real["kernels"])
+    want = dict(flops=cost["flops_per_device"], bytes=cost["bytes_per_device"],
+                kernels=cost["kernels"])
+    if got != want:
+        diff = {op: (cost["by_op"].get(op), row) for op, row in real["by_op"].items()
+                if cost["by_op"].get(op) != row}
+        diff.update({op: (row, None) for op, row in cost["by_op"].items()
+                     if op not in real["by_op"]})
+        raise AssertionError(f"launch (b) {name} {shape}: the count on the card {got} differs "
+                             f"from the fake one {want}; ops (fake, card): {diff}")
+    walls, peaks = [], []
+    long_run = configs.SHAPES[shape].kind == "prefill" and arch.family != "diffusion"
+    for _ in range(1 if long_run else LAUNCH_TIMED):
+        free_card()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out, wall = synced_wall(lambda: fn(*args))
+        del out
+        walls.append(wall)
+        # bytes held before the step that it does not take as an argument
+        peaks.append(torch.cuda.max_memory_allocated() - held + real["argument_bytes"])
+    r = rec["roofline"]
+    bound = max(r["compute_s"], r["memory_s"])
+    wall, measured = min(walls), max(peaks)
+    predicted = rec["memory"]["peak_bytes_per_device"]
+    row = dict(arch=name, shape=shape, batch=batch, variant=variant, dtype=arch.param_dtype,
+               flops=cost["flops_per_device"], flops_by_dtype=cost["flops_by_dtype"],
+               bytes=cost["bytes_per_device"], kernels=cost["kernels"],
+               compute_s=r["compute_s"], memory_s=r["memory_s"], dominant=r["dominant"],
+               bound_s=bound, walls_s=walls, roofline_share=bound / wall,
+               predicted_peak_gib=predicted / 2**30, measured_peak_gib=measured / 2**30,
+               peak_error=(predicted - measured) / measured, analyze_s=rec["analyze_s"],
+               formula_flops=formula_flops(arch, shape, batch))
+    if row["formula_flops"]:
+        row["formula_over_counted"] = row["formula_flops"] / cost["flops_per_device"]
+    if variant == "int8":  # each product of the W8A8 denoiser against its plain version
+        zero_counts()
+        with int8_held_exactly(f"launch (b) {name} int8") as held_at:
+            fn(*args)
+        torch.cuda.synchronize()
+        row["int8_launches"] = k_int8.launches
+        row["int8_held"] = sum(held_at.values())
+        if not row["int8_launches"] or row["int8_held"] != row["int8_launches"]:
+            raise AssertionError(f"launch (b): int8_matmul launched {k_int8.launches} times, "
+                                 f"held {row['int8_held']}")
+    del fn, args
+    free_card()
+    say(f"launch (b) {name} {shape} B={batch} {variant or arch.param_dtype}: "
+        f"{row['flops'] / 1e12:.3f} TFLOP (formula {row['formula_flops']}), "
+        f"{row['bytes'] / 1e9:.2f} GB; bound {bound * 1e3:.2f} ms ({r['dominant']}), wall "
+        f"{wall * 1e3:.2f} ms: roofline share {row['roofline_share']:.3f}; peak predicted "
+        f"{row['predicted_peak_gib']:.2f} GiB, measured {row['measured_peak_gib']:.2f} GiB "
+        f"({100 * row['peak_error']:+.1f} %)")
+    if wall < bound:
+        raise AssertionError(f"launch (b) {name} {shape}: wall {wall} s below the roofline "
+                             f"bound {bound} s: the count is wrong")
+    if abs(row["peak_error"]) > LAUNCH_PEAK_TOL:
+        raise AssertionError(f"launch (b) {name} {shape}: predicted peak {predicted} B, "
+                             f"measured {measured} B")
+    return row
+
+
+def phase_launch() -> dict:
+    """The launch tooling: (a) the one-card dry run of every cell and the
+    production meshes' layouts, on fake tensors; (b) the dry run held
+    against the card on cells the earlier phases run."""
+    free_card()
+    t_phase = time.perf_counter()
+    out: dict = {"card_total_memory": torch.cuda.get_device_properties(0).total_memory,
+                 "hbm_bytes_constant": roofline.HBM_BYTES}
+    say(f"launch: card memory {out['card_total_memory']} B (roofline.HBM_BYTES "
+        f"{roofline.HBM_BYTES})")
+    t = time.perf_counter()
+    out["dry"] = launch_dry_all()
+    walls = {"a": time.perf_counter() - t}
+    t = time.perf_counter()
+    out["checks"] = [launch_check(*c) for c in LAUNCH_CHECKS]
+    walls["b"] = time.perf_counter() - t
+    out["part_walls_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -3013,7 +3275,7 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
     for key, (args, kw) in sorted(cap.last.items(), key=str):
         name = key[0]
         ops_n, nbytes = work(name, args, key[4])
-        t_ops, t_bytes = ops_n / INT8_OPS_PER_S * 1e3, nbytes / BYTES_PER_S * 1e3
+        t_ops, t_bytes = ops_n / roofline.PEAK_FLOPS_INT8 * 1e3, nbytes / roofline.HBM_BW * 1e3
         row = dict(name=name, args=[list(a.shape) if a is not None else None for a in args[:3]],
                    unpadded_mkn=list(key[4]), y_prev=key[2], w_transposed=key[3],
                    ms=median_ms(lambda: real[name](*args, **kw), flush),
@@ -3063,6 +3325,7 @@ def main() -> int:
     moe_path = phase_moe()
     recurrent = phase_recurrent()
     distributed = phase_distributed()
+    launching = phase_launch()
     rows, bounds = phase_times(cap)
     # the least device time a compiled step needs for each kernel's calls,
     # in the run that launches it on every layer of its kind
@@ -3093,6 +3356,7 @@ def main() -> int:
     say("moe: " + json.dumps(moe_path))
     say("recurrent: " + json.dumps(recurrent))
     say("distributed: " + json.dumps(distributed))
+    say("launch: " + json.dumps(launching))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -1,4 +1,4 @@
-from .base import SHAPES, ArchConfig, ShapeCell, cell_applicable, torch_dtype
+from .base import SHAPES, ArchConfig, ShapeCell, cell_applicable, input_specs, torch_dtype
 from .registry import ASSIGNED, REGISTRY, get, names
 
 __all__ = [
@@ -6,6 +6,7 @@ __all__ = [
     "ArchConfig",
     "ShapeCell",
     "cell_applicable",
+    "input_specs",
     "torch_dtype",
     "ASSIGNED",
     "REGISTRY",

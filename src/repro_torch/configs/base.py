@@ -5,9 +5,10 @@ one :class:`ArchConfig` in its own module under ``repro_torch/configs``;
 ``registry.py`` exposes ``get(name)`` / ``names()``. ``SHAPES`` defines
 the four assigned input-shape cells and :func:`cell_applicable` says
 which (arch, shape) cells run. Dtypes stay strings, as in the reference;
-:func:`torch_dtype` maps one to a ``torch.dtype``. The reference's
-``input_specs`` (abstract stand-ins for the dry run) comes with the
-launch tooling (ROADMAP.md, queue 1, item 10).
+:func:`torch_dtype` maps one to a ``torch.dtype``. :func:`input_specs`
+gives a step's inputs as meta tensors (a shape and a dtype, no data), the
+counterpart of the reference's ``ShapeDtypeStruct`` stand-ins, for the
+dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -175,6 +176,50 @@ def cell_applicable(arch: ArchConfig, shape: ShapeCell) -> tuple[bool, str]:
         # their own serve cell via the Ditto examples/benchmarks.
         return False, "SKIP(diffusion): token prefill/decode not defined; see serve_denoise"
     return True, ""
+
+
+def input_specs(arch: ArchConfig, shape: ShapeCell, *, batch_override: int | None = None) -> dict:
+    """Meta-tensor stand-ins for every model input of a step.
+
+    Train: tokens + labels (+ frontend embeds). Prefill: tokens.
+    Decode: tokens (B, 1) + position (the cache is the step's own argument).
+    Diffusion: ``x0`` to train, ``latents`` + ``t`` to serve, ``labels``
+    for a class-conditional model."""
+    b = batch_override or shape.global_batch
+    s = shape.seq_len
+    adt = torch_dtype(arch.activation_dtype)
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    specs: dict[str, torch.Tensor] = {}
+    nf = arch.n_frontend_tokens if arch.frontend else 0
+    if arch.family == "diffusion":
+        hw = arch.input_size
+        if shape.kind == "train":  # diffusion training consumes clean x0
+            specs["x0"] = spec((b, hw, hw, arch.in_channels), torch.float32)
+        else:  # serve_denoise: one denoiser forward at the cell's batch
+            specs["latents"] = spec((b, hw, hw, arch.in_channels), adt)
+            specs["t"] = spec((b,), torch.float32)
+        if arch.n_classes:
+            specs["labels"] = spec((b,), torch.int32)
+        return specs
+    if shape.kind in ("train", "prefill"):
+        st = s - nf
+        specs["tokens"] = spec((b, st), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = spec((b, st), torch.int32)
+        if arch.frontend == "audio":
+            # audio stub: precomputed frame embeddings replace token embedding
+            specs["embeds"] = spec((b, st, arch.d_model), adt)
+        elif nf:
+            specs["frontend_embeds"] = spec((b, nf, arch.d_model), adt)
+    else:  # decode: one new token against a cache of seq_len
+        specs["tokens"] = spec((b, 1), torch.int32)
+        if arch.frontend == "audio":
+            specs["embeds"] = spec((b, 1, arch.d_model), adt)
+        specs["pos"] = spec((), torch.int32)
+    return specs
 
 
 def torch_dtype(name: str) -> torch.dtype:

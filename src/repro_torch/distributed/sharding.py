@@ -149,6 +149,20 @@ def param_shardings(axes_tree, shape_tree, rules: dict, mesh):
         for a, s in zip(axes, shapes)])
 
 
+def layout_bytes(a: torch.Tensor, lay: Layout) -> int:
+    """Bytes one device of ``lay``'s mesh holds of ``a`` (a tensor or a
+    meta tensor) laid out on ``lay``."""
+    sizes = list(mesh_axes(lay.mesh).values())
+    split = math.prod(n for n, p in zip(sizes, lay.placements) if isinstance(p, Shard))
+    return a.numel() * a.element_size() // split
+
+
+def sharded_bytes(axes_tree, shape_tree, rules: dict, mesh) -> int:
+    """Parameter bytes one device of ``mesh`` holds under :func:`spec_for`."""
+    lays = param_shardings(axes_tree, shape_tree, rules, mesh)
+    return sum(layout_bytes(s, lay) for s, lay in zip(tr.leaves(shape_tree), tr.leaves(lays)))
+
+
 def layout(a: torch.Tensor, lay: Layout) -> DTensor:
     """``a`` laid out on ``lay``: a plain tensor is distributed (the mesh's
     first rank holds the whole value), a DTensor redistributed."""

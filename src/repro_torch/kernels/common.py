@@ -20,6 +20,11 @@
   built on first use, under a lock (two serving threads may reach their
   first launch together), never at import (the CPU tests import every
   module).
+* :func:`record_work` / :func:`recording` — a wrapper reports the work
+  of a launch (operations, bytes) to the step analyzer
+  (``repro_torch/launch/op_analysis.py``), which cannot see a ``ctypes`` launch in
+  the dispatch. A no-op costing one ``None`` check unless an analysis
+  has installed a recorder.
 * :func:`call` — every wrapper's launch: the C entry runs under
   ``torch.cuda.device(<the operand's device>)`` on that device's current
   stream. The entries ask ``cudaGetDevice`` for the SM count and the
@@ -29,6 +34,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -42,10 +48,11 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
            "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
-           "resolve_device",
+           "resolve_device", "is_fake", "record_work", "recording",
            "library_path", "build_library", "cuda_fn", "call", "launch_check",
            "check_cuda_operand"]
 
@@ -71,6 +78,32 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A tensor with no data: a meta tensor, or a fake one (``FakeTensorMode``)."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+_recorder = None
+
+
+def record_work(name: str, *, flops: float, nbytes: float, dtype: torch.dtype) -> None:
+    """Report one launch's work to the recorder :func:`recording` installed;
+    a no-op without one."""
+    if _recorder is not None:
+        _recorder(name, flops=flops, nbytes=nbytes, dtype=dtype)
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Install ``recorder(name, flops=, nbytes=, dtype=)`` for the block."""
+    global _recorder
+    saved, _recorder = _recorder, recorder
+    try:
+        yield
+    finally:
+        _recorder = saved
 
 
 def pad2(a: torch.Tensor, br: int, bc: int, fill: int = 0) -> torch.Tensor:

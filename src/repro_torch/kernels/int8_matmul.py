@@ -35,7 +35,12 @@ sits in PERF.md beside its bound.
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.int8_act_matmul`
 zero-pads, exactly as the reference's ops wrapper does). On a CPU tensor
 the wrapper runs the plain version (``kernels.ref``); on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. On the card it reports each launch's work
+(``2 batch M N K`` int8 operations, the operands' and the int32 result's
+bytes) to ``common.record_work``. On a fake or meta tensor (the step
+analyzer's dry run, ``repro_torch/launch/op_analysis.py``) it reports the same work
+and returns an empty int32 result of the output's shape: it carries no
+data and launches nothing.
 """
 from __future__ import annotations
 
@@ -71,6 +76,12 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *, bm: int = 128, bn: int 
         raise ValueError(f"int8_matmul: batch dims differ: {tuple(x_q.shape)} vs {tuple(w_q.shape)}")
     if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
         w_q = w_q.transpose(-1, -2).contiguous()
+    lead = x_q.shape[:-2]
+    common.record_work("int8_matmul", flops=2.0 * math.prod(lead) * m * n * k,
+                       nbytes=float(x_q.numel() + w_q.numel() + 4 * math.prod(lead) * m * n),
+                       dtype=torch.int8)
+    if common.is_fake(x_q):
+        return torch.empty(lead + (m, n), dtype=torch.int32, device=x_q.device)
     common.check_cuda_operand("int8_matmul x_q", x_q, torch.int8)
     common.check_cuda_operand("int8_matmul w_q", w_q, torch.int8)
     out = launch(x_q, w_q)

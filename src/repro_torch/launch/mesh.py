@@ -1,10 +1,14 @@
 """Production and test meshes, and the one-rank process group.
 
 Mirror of ``src/repro/launch/mesh.py``. The reference's production mesh is
-a ``jax.make_mesh`` over the dry run's 256 or 512 forced host devices. A
-``DeviceMesh`` of 256 ranks cannot exist in one process, so the port's
-production mesh is an :class:`AbstractMesh`: the axis names and sizes that
-``distributed/sharding.py:spec_for`` reads, with no devices behind them.
+a ``jax.make_mesh`` over the dry run's 256 or 512 forced host devices. The
+port's production mesh is an :class:`AbstractMesh`: the axis names and
+sizes that ``distributed/sharding.py:spec_for`` reads, with no devices
+behind them, which is all the layouts need. (A ``DeviceMesh`` of 256 ranks
+can exist in one process, over the ``fake`` backend of
+``torch.testing._internal.distributed.fake_pg``: ``init_process_group("fake",
+store=FakeStore(), rank=0, world_size=256)``, then ``init_device_mesh("cpu",
+(16, 16))``; nothing needs one until a step runs over DTensors.)
 ``make_test_mesh`` is a real ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the current process group.
 

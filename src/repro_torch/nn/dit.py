@@ -112,8 +112,11 @@ def label_rows(table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     bits (one term of each sum is not zero; TF32 stays off, PyTorch's
     default), and its backward is a product too, where the gather's
     backward adds rows with atomics, in an order that changes from run to
-    run on the card."""
-    return F.one_hot(labels.to(torch.int64), table.shape[0]).to(table.dtype) @ table
+    run on the card. The one-hot rows are a comparison with ``arange``:
+    ``F.one_hot`` runs other ops on the card than on fake tensors, so the
+    step analyzer's dry run would not count the card's ops."""
+    classes = torch.arange(table.shape[0], device=labels.device)
+    return (labels.to(torch.int64)[..., None] == classes).to(table.dtype) @ table
 
 
 def _modulate(x, shift, scale):
