@@ -110,7 +110,23 @@ Phases (any failure raises and the script exits non-zero):
              2-shard and 1-shard walls of the same warm stream and the
              median dispatch wall of each (one host drives both shards),
              per-shard dispatches and rows, and peak memory.
-7. train   — DiT-XL/2 training at full width and depth from
+7. analysis — the port's lint and its runner-key audit (after the
+             mesh phase, on its DiT-XL/2 weights): (a) ``python -m
+             repro_torch.analysis``'s passes over the shipped tree, the
+             audit on fake CUDA tensors: no finding; (b) seven (modes,
+             plan) pairs served through one ``ServeSession`` at B = 2, 4
+             DDIM steps (Defo's frozen modes under base, statistics,
+             ``low_bits=4``, ``fused`` and ``fused`` + ``low_bits=4``; all-act
+             and all-diff under base): for each key the fingerprint of what
+             the step dispatches (aten ops and kernel launches, recorded
+             around the step the cache captures) equals the one recorded
+             on fake CUDA tensors, the launches recorded in the capture
+             equal the cache's, one capture a key, and the sample equals
+             uncached ``serve_records`` bit for bit; every kernel
+             launches under a capture; (c) all-diff base, then 40 steps
+             with a 250 ms deadline and the watchdog (the same sig), then
+             ``low_bits=4``, through one cache: captures 1, 1, 2.
+8. train   — DiT-XL/2 training at full width and depth from
              ``configs/dit_xl2.py`` (bfloat16 params, float32 compute):
              ``init_state``, ``make_train_step`` with ``make_optimizer(base_lr
              =3e-4)`` (TrainDriver's warmup for a 20-step run), 20 steps at
@@ -128,7 +144,7 @@ Phases (any failure raises and the script exits non-zero):
              full width and depth 2 through ``TrainDriver``: 8 steps
              straight against 4, a restart from the checkpoint and 4 more,
              the last losses within 1e-5 (and whether they are bit-identical).
-8. lm      — the LM substrate's serving path at qwen3-0.6b's full width
+9. lm      — the LM substrate's serving path at qwen3-0.6b's full width
              and depth (28 x 1024, 16 / 8 heads of 64, qk-norm, tied and
              padded vocab; random bf16 weights from a seed) through
              ``make_prefill_step`` / ``make_decode_step``, the DiT freed
@@ -150,7 +166,7 @@ Phases (any failure raises and the script exits non-zero):
              internvl2-2b and musicgen-medium at full width, a 512-position
              prefill at B = 2 and 8 decode steps each, finite. It prints
              walls, tokens/s and peak memory; no Ditto kernel launches.
-9. lm_train — LM training at qwen3-0.6b's full width and depth (bf16)
+10. lm_train — LM training at qwen3-0.6b's full width and depth (bf16)
              through ``init_state`` / ``make_train_step``: (a) 12 steps at
              ``train_4k``'s 4096 tokens and the largest batch of 4, 2, 1
              that fits (the cell's 256 cut; a refused batch is printed),
@@ -162,7 +178,7 @@ Phases (any failure raises and the script exits non-zero):
              2, ``TrainDriver`` 4 + a restart + 4 steps against 8 straight,
              every state tensor ``torch.equal``; (d) the float32 smoke step
              on the card within 1e-4 of the CPU's (loss, grad_norm).
-10. moe    — qwen2-moe-a2.7b (24 x 2048, 60 experts top 4 + a shared
+11. moe    — qwen2-moe-a2.7b (24 x 2048, 60 experts top 4 + a shared
              expert, 14.3 B params, random bf16 weights from a seed): (e) a
              4096-token prefill at B = 2, then a 512-token prompt and 32
              greedy decode steps at B = 16 (the position on the card),
@@ -176,7 +192,7 @@ Phases (any failure raises and the script exits non-zero):
              qwen2-moe and arctic-480b: decode against forward within 2e-3
              relative, the card's forward and aux within 1e-4 of the CPU's.
              No Ditto kernel launches in either phase.
-11. recurrent — the recurrent LM families at full width (random bf16
+12. recurrent — the recurrent LM families at full width (random bf16
              weights from a seed), the DiT and the earlier LMs freed first:
              (a) xlstm-125m (2 x (5 mLSTM + 1 sLSTM), d 768) at full depth:
              a 32768-token prefill at B = 1; a 512-token prompt at
@@ -209,7 +225,7 @@ Phases (any failure raises and the script exits non-zero):
              at 1 super-block (B = 2, S = 512), within 1e-3 (and whether
              bit-identical), both peaks. It prints walls, tokens/s, peaks
              and decode ms a step; no Ditto kernel launches.
-12. distributed — the rest of ``distributed/`` on one rank (a NCCL group
+13. distributed — the rest of ``distributed/`` on one rank (a NCCL group
              of one, a (1, 1) ``DeviceMesh``): (a) ``param_axes`` and
              ``spec_for`` for all eleven configs at full width on the (16,
              16) and (2, 16, 16) production meshes, on meta tensors, the
@@ -230,7 +246,7 @@ Phases (any failure raises and the script exits non-zero):
              equal to the plain version; the walls of both (on one card,
              the schedule's own cost) and their device activities and
              time (``torch.profiler``).
-13. launch — the launch tooling: (a) ``launch/dryrun.py``'s one-card
+14. launch — the launch tooling: (a) ``launch/dryrun.py``'s one-card
              record of every (arch, shape) cell at full width, at the
              batches the earlier phases cut the cells to (the recurrent
              families' ``prefill_32k`` and ``train_4k`` also at S = 512),
@@ -247,7 +263,7 @@ Phases (any failure raises and the script exits non-zero):
              step that it does not take as an argument subtracted), the
              hand formulas' FLOPs beside the count, and the W8A8 step's
              201 products held to the plain version exactly.
-14. times  — each kernel on the inputs the slice gave it (the last call at
+15. times  — each kernel on the inputs the slice gave it (the last call at
              each shape), CUDA events, median of 30 runs with the L2 cache
              flushed before each, beside its bound (the work at the path's
              own shapes, not the 128-padded ones), its plain version and,
@@ -258,12 +274,14 @@ Phases (any failure raises and the script exits non-zero):
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
 ``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``,
-``recurrent: {...}``, ``distributed: {...}`` and ``launch: {...}`` lines,
+``recurrent: {...}``, ``distributed: {...}``, ``launch: {...}`` and
+``analysis: {...}`` lines,
 the kernels JSON, the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -283,6 +301,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import configs, tree  # noqa: E402
+from repro_torch.analysis import trace_audit  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan, PlanSchedule, dit_runner  # noqa: E402
 from repro_torch.data.synthetic import DataCfg, batch_for  # noqa: E402
@@ -3190,6 +3209,169 @@ def phase_launch() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- analysis
+ANALYSIS_STEPS = 4  # Defo's two calibration steps, then a capture and replays
+# (policy, plan fields over base) of (b): Defo's frozen modes under five
+# plans, then all-act and all-diff modes under base
+ANALYSIS_PAIRS = (("defo", {}), ("defo", dict(collect_stats=True)), ("defo", dict(low_bits=4)),
+                  ("defo", dict(fused=True)), ("defo", dict(fused=True, low_bits=4)),
+                  ("act", {}), ("diff", {}))
+ANALYSIS_EQUAL = dict(steps=40, deadline_ms=250.0, watchdog=True)  # (c): base's sig
+
+
+class CaptureRecorder:
+    """While installed, every runner the cache builds records what its step
+    dispatches while a CUDA graph captures it (``trace_audit.StepRecorder``,
+    the recorder of the fake fingerprint), by runner key."""
+
+    def __init__(self):
+        self.records: dict = {}
+        self.orig = serve_cache._Runner.__init__
+        rec = self
+
+        def init(runner, key, *args):
+            rec.orig(runner, key, *args)
+            step = runner.step
+
+            def recorded(*a):
+                if not torch.cuda.is_current_stream_capturing():
+                    return step(*a)
+                r = trace_audit.StepRecorder()
+                with r:
+                    out = step(*a)
+                rec.records[key] = r
+                return out
+
+            runner.step = recorded
+
+        serve_cache._Runner.__init__ = init
+
+    def close(self):
+        serve_cache._Runner.__init__ = self.orig
+
+
+def first_divergence(a: list, b: list) -> str:
+    """Where two event records first differ, and the ops whose counts
+    differ, for the error message."""
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    ca, cb = (collections.Counter(e[1] for e in ev) for ev in (a, b))
+    counts = {op: (ca[op], cb[op]) for op in ca.keys() | cb.keys() if ca[op] != cb[op]}
+    return (f"{len(a)} vs {len(b)} events; first difference at {i}: "
+            f"{a[i] if i < len(a) else None} vs {b[i] if i < len(b) else None}; "
+            f"before it {a[max(i - 2, 0):i]}; counts that differ {counts}")
+
+
+def phase_analysis(params, x_T, labels, sched) -> dict:
+    """The port's lint and its runner-key audit on the card: (a) the lint
+    over the shipped tree, its audit on fake CUDA tensors; (b) seven
+    (modes, plan) pairs served through ``ServeSession`` at DiT-XL/2, each
+    key's fake-CUDA fingerprint held equal to the one recorded around its
+    capture, its recorded launches to the cache's, one capture a key, the
+    sample to uncached ``serve_records`` bit for bit; (c) an equal-sig
+    pair captures once, a distinct-sig pair twice."""
+    from repro_torch.analysis import __main__ as lint
+
+    free_card()
+    t_phase = time.perf_counter()
+    out: dict = {"walls_s": {}}
+    t = time.perf_counter()
+    findings = lint.run(ROOT)
+    out["walls_s"]["a"] = time.perf_counter() - t
+    out["fake_device"] = op_analysis.fake_device()
+    say(f"analysis (a): the lint on the shipped tree, runner-key audit on fake "
+        f"{out['fake_device']} tensors: {len(findings)} findings, "
+        f"{out['walls_s']['a']:.1f} s")
+    if findings or out["fake_device"] != "cuda":
+        raise AssertionError("analysis (a): " + "; ".join(f.render() for f in findings))
+
+    # (b)
+    t = time.perf_counter()
+    zero_counts()
+    cache = CompiledRunnerCache()
+    sess = ServeSession(params, CFG, sched, DittoPlan(steps=ANALYSIS_STEPS, collect_stats=False),
+                        cache=cache)
+    rec = CaptureRecorder()
+    served = []
+    try:
+        for policy, kw in ANALYSIS_PAIRS:
+            plan = DittoPlan(steps=ANALYSIS_STEPS, policy=policy, collect_stats=False).replace(**kw)
+            res = sess.serve(x_T, labels, plan=plan)
+            modes = res.chunks[0].engine.compiled_modes()
+            key = cache.key_for(CFG, modes, plan, bucket=B)
+            _, want, _ = harness.serve_records(params, CFG, sched, x_T, labels, plan, bucket=B,
+                                               device=DEVICE)
+            if not torch.equal(res.sample, want):
+                d = (res.sample - want).abs().max().item()
+                raise AssertionError(f"analysis (b) {policy} {kw}: the replayed sample differs "
+                                     f"from uncached serve_records (max {d})")
+            served.append((policy, kw, plan, modes, key))
+    finally:
+        rec.close()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    counts = launch_counts()
+    t = time.perf_counter()
+    pairs = []
+    with op_analysis.fake_mode():
+        state = trace_audit.abstract_state(CFG, B)
+        for policy, kw, plan, modes, key in served:
+            t1 = time.perf_counter()
+            fake = trace_audit.trace_step(CFG, modes, plan, B, state)
+            card = rec.records.get(key)
+            if card is None:
+                raise AssertionError(f"analysis (b) {policy} {kw}: no capture was recorded")
+            if fake.fingerprint() != card.fingerprint():
+                raise AssertionError(f"analysis (b) {policy} {kw}: the fake fingerprint differs "
+                                     f"from the capture's: "
+                                     f"{first_divergence(fake.events, card.events)}")
+            if card.launch_counts() != cache.capture_launches[key]:
+                raise AssertionError(f"analysis (b) {policy} {kw}: recorded launches "
+                                     f"{card.launch_counts()}, the cache counted "
+                                     f"{cache.capture_launches[key]}")
+            row = dict(policy=policy, plan=kw, sig=list(key.plan_sig),
+                       modes={m: sum(v == m for v in modes.values()) for m in set(modes.values())},
+                       fingerprint=card.fingerprint(), events=len(card.events),
+                       launches=card.launch_counts(), fake_s=time.perf_counter() - t1)
+            pairs.append(row)
+            say(f"analysis (b): {json.dumps(row)}")
+    fake_s = time.perf_counter() - t
+    keys = {key for *_, key in served}  # Defo may freeze all-act: then it shares act's key
+    if set(cache.capture_counts) != keys or any(c != 1 for c in cache.capture_counts.values()):
+        raise AssertionError(f"analysis (b): captures per key {cache.capture_counts}")
+    captured = {k: sum(c.get(k, 0) for c in cache.capture_launches.values()) for k in counts}
+    idle = [k for k, c in captured.items() if not c]
+    if idle:
+        raise AssertionError(f"analysis (b): {idle} never launched under a capture")
+    out["b"] = dict(pairs=pairs, captures=len(cache.capture_counts), captured=captured,
+                    launches=counts, serve_s=serve_s, fake_s=fake_s)
+    out["walls_s"]["b"] = serve_s + fake_s
+    del sess, cache
+    free_card()
+
+    # (c): all-diff modes, so Defo's decision (another step count draws
+    # other timesteps) cannot make a second key for a reason outside the plan
+    t = time.perf_counter()
+    cache = CompiledRunnerCache()
+    base = DittoPlan(steps=ANALYSIS_STEPS, policy="diff", collect_stats=False)
+    sess = ServeSession(params, CFG, sched, base, cache=cache)
+    captures = []
+    for plan in (base, base.replace(**ANALYSIS_EQUAL), base.replace(low_bits=4)):
+        sess.serve(x_T, labels, plan=plan)
+        captures.append(cache.n_captures)
+    if captures != [1, 1, 2]:
+        raise AssertionError(f"analysis (c): captures after base, the equal-sig plan and "
+                             f"low_bits=4: {captures}, want [1, 1, 2]")
+    out["c"] = dict(captures=captures, equal=ANALYSIS_EQUAL)
+    out["walls_s"]["c"] = time.perf_counter() - t
+    del sess, cache
+    free_card()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    say(f"analysis: fake == capture fingerprints for {len(pairs)} keys, one capture a key, "
+        f"captures (c) {captures}; walls {json.dumps(out['walls_s'])}, phase "
+        f"{out['phase_wall_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------------- times
 def median_ms(fn, flush, reps=30, warm=3) -> float:
     for _ in range(warm):
@@ -3318,6 +3500,7 @@ def main() -> int:
     serving = phase_serve(params, x_T, labels, sched, diff_run)
     scheduling = phase_scheduler(params, sched)
     meshing = phase_mesh(params, sched)
+    analysis = phase_analysis(params, x_T, labels, sched)
     del params, x_T, labels, diff_run  # the training phase needs the card's memory
     training = phase_train()
     lm = phase_lm()
@@ -3357,6 +3540,7 @@ def main() -> int:
     say("recurrent: " + json.dumps(recurrent))
     say("distributed: " + json.dumps(distributed))
     say("launch: " + json.dumps(launching))
+    say("analysis: " + json.dumps(analysis))
     say(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

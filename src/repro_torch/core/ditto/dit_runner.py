@@ -346,9 +346,9 @@ def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, st
     unsplit step's. ``tile_hist`` sums the groups' measured tiles where a
     layer's rows on one device are whole ``block``-row tiles; the layers of
     ``prev`` (:func:`_straddling`, each with its groups' ``x_prev`` from
-    before the step, on ``device``) are classified again over the whole
-    batch (:func:`_whole_batch_tile_hists`). Values are (3,) float64 count
-    tensors on the host."""
+    before the step, on ``device``, default the card) are classified again
+    over the whole batch (:func:`_whole_batch_tile_hists`). Values are (3,)
+    float64 count tensors on the host."""
     host = _host_counts(parts_aux)
     names: list[str] = []
     for h in host:
@@ -369,7 +369,8 @@ def merge_row_aux(parts_aux: list[dict], states: list[dict], modes: dict[str, st
                 c = [a + b for a, b in zip(c, boundary[n])]
             m[k] = torch.tensor(c, dtype=torch.float64)
     if prev:
-        for n, hist in _whole_batch_tile_hists(prev, states, block, device).items():
+        hists = _whole_batch_tile_hists(prev, states, block, resolve_device(device))
+        for n, hist in hists.items():
             merged[n]["tile_hist"] = hist
     return merged
 

@@ -25,10 +25,11 @@ distinct segment.
 The reference's ``interpret`` has no counterpart: the device of the
 tensors decides between kernel and plain version. On the card every
 kernel tiles by 128, so :func:`check_device_block` rejects any other
-``block`` there before a step runs; the plain versions on the CPU take any
-block. Of the deprecated per-knob keyword shims only the :data:`UNSET` sentinel
-is here, which ``ServeScheduler.submit(deadline_ms=)`` needs
-(``plan_from_kwargs`` has no caller in the port).
+``block`` there (and on ``meta``, where the wrappers take their card legs)
+before a step runs; the plain versions on the CPU take any block. Of the
+deprecated per-knob keyword shims only the :data:`UNSET` sentinel is here,
+which ``ServeScheduler.submit(deadline_ms=)`` needs (``plan_from_kwargs``
+has no caller in the port).
 """
 from __future__ import annotations
 
@@ -449,12 +450,14 @@ def is_unset(v) -> bool:
 
 def check_device_block(plan, device) -> None:
     """Raise ``ValueError`` when ``plan`` (or any segment of a schedule) asks
-    for a tile other than :data:`CARD_BLOCK` on a CUDA device: the kernels
-    ``int8_matmul``, ``diff_encode``, ``ditto_diff_matmul``,
-    ``diff_encode_fused`` and ``ditto_fused_matmul`` tile by 128 only. The
-    plain versions on the CPU take any block, and an eager-only plan
-    (``compiled=False``) launches no kernel."""
-    if torch.device(device).type != "cuda" or not plan.compiled:
+    for a tile other than :data:`CARD_BLOCK` on any device but the CPU: the
+    kernels ``int8_matmul``, ``diff_encode``, ``ditto_diff_matmul``,
+    ``diff_encode_fused`` and ``ditto_fused_matmul`` tile by 128 only, and
+    on ``meta`` (the runner-key audit's fake device where no card is
+    visible) the wrappers take their card legs. The plain versions on the
+    CPU take any block, and an eager-only plan (``compiled=False``)
+    launches no kernel."""
+    if torch.device(device).type == "cpu" or not plan.compiled:
         return
     blocks = sorted({p.block for _, _, p in segment_view(plan)} - {CARD_BLOCK})
     if blocks:

@@ -22,9 +22,12 @@
   module).
 * :func:`record_work` / :func:`recording` — a wrapper reports the work
   of a launch (operations, bytes) to the step analyzer
-  (``repro_torch/launch/op_analysis.py``), which cannot see a ``ctypes`` launch in
-  the dispatch. A no-op costing one ``None`` check unless an analysis
-  has installed a recorder.
+  (``repro_torch/launch/op_analysis.py``), and its static arguments
+  (:func:`operands`: shapes and dtypes; ``low_bits``, ``w_transposed``,
+  whether ``y_prev`` is given) to the runner-key audit
+  (``repro_torch/analysis/trace_audit.py``); neither can see a ``ctypes``
+  launch in the dispatch. A no-op costing two ``None`` checks unless an
+  analysis has installed a recorder.
 * :func:`call` — every wrapper's launch: the C entry runs under
   ``torch.cuda.device(<the operand's device>)`` on that device's current
   stream. The entries ask ``cudaGetDevice`` for the SM count and the
@@ -52,9 +55,9 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
            "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
-           "resolve_device", "is_fake", "record_work", "recording",
-           "library_path", "build_library", "cuda_fn", "call", "launch_check",
-           "check_cuda_operand"]
+           "resolve_device", "is_fake", "operands", "record_work", "recording",
+           "CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build_library", "cuda_fn",
+           "call", "launch_check", "check_cuda_operand"]
 
 #: The int8-everywhere default; DittoPlan.low_bits and every kernel
 #: signature share this one constant.
@@ -86,24 +89,37 @@ def is_fake(t: torch.Tensor) -> bool:
 
 
 _recorder = None
+_launch_recorder = None
 
 
-def record_work(name: str, *, flops: float, nbytes: float, dtype: torch.dtype) -> None:
-    """Report one launch's work to the recorder :func:`recording` installed;
-    a no-op without one."""
+def operands(*tensors) -> tuple:
+    """``(shape, dtype)`` of each tensor operand of a launch (``None`` for an
+    operand not given): the static arguments a recorded launch carries."""
+    return tuple(None if t is None else (tuple(t.shape), str(t.dtype)) for t in tensors)
+
+
+def record_work(name: str, *, flops: float, nbytes: float, dtype: torch.dtype,
+                static: dict | None = None) -> None:
+    """Report one launch to the recorders :func:`recording` installed: its
+    work to ``recorder``, its static arguments to ``launches``; a no-op
+    without them."""
     if _recorder is not None:
         _recorder(name, flops=flops, nbytes=nbytes, dtype=dtype)
+    if _launch_recorder is not None:
+        _launch_recorder(name, static or {})
 
 
 @contextlib.contextmanager
-def recording(recorder):
-    """Install ``recorder(name, flops=, nbytes=, dtype=)`` for the block."""
-    global _recorder
-    saved, _recorder = _recorder, recorder
+def recording(recorder=None, *, launches=None):
+    """Install ``recorder(name, flops=, nbytes=, dtype=)`` and
+    ``launches(name, static)`` for the block (either may be ``None``)."""
+    global _recorder, _launch_recorder
+    saved = _recorder, _launch_recorder
+    _recorder, _launch_recorder = recorder, launches
     try:
         yield
     finally:
-        _recorder = saved
+        _recorder, _launch_recorder = saved
 
 
 def pad2(a: torch.Tensor, br: int, bc: int, fill: int = 0) -> torch.Tensor:

@@ -27,7 +27,12 @@ beside its bound.
 Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.encode_classes`
 zero-pads both operands identically, so padding is class 0). On a CPU
 tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises. Only 128 x 128 tiles exist on the card.
+the kernel or raises. Only 128 x 128 tiles exist on the card. Off the
+CPU it reports each launch (its bytes, 0 operations, its operands' shapes
+and dtypes) to ``common.record_work``; on a fake or meta tensor (the
+runner-key audit, ``repro_torch/analysis/trace_audit.py``) it reports the
+same and returns an empty int32 class map of the output's shape,
+launching nothing.
 """
 from __future__ import annotations
 
@@ -57,6 +62,11 @@ def diff_encode(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
         return diff_encode_ref(x_t, x_prev, (bm, bk))
     if (bm, bk) != (128, 128):
         raise ValueError(f"diff_encode: the CUDA kernel tiles by 128, got ({bm}, {bk})")
+    tiles = math.prod(x_t.shape[:-2]) * (m // 128) * (k // 128)
+    common.record_work("diff_encode", flops=0.0, nbytes=float(2 * x_t.numel() + 4 * tiles),
+                       dtype=torch.int8, static=dict(operands=common.operands(x_t, x_prev)))
+    if common.is_fake(x_t):
+        return _empty_classes(x_t)
     common.check_cuda_operand("diff_encode x_t", x_t, torch.int8)
     common.check_cuda_operand("diff_encode x_prev", x_prev, torch.int8)
     out = launch(x_t, x_prev)
@@ -71,9 +81,15 @@ def launch(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0) -> torch.T
     of benchmarks/torch_encode_sweep.py)."""
     (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
     batch, gm, gk = math.prod(lead), m // 128, k // 128
-    out = torch.empty(lead + (gm, gk), dtype=torch.int32, device=x_t.device)
+    out = _empty_classes(x_t)
     cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
     common.call("diff_encode", "ditto_diff_encode", _ARGTYPES, x_t.device, x_t.data_ptr(),
                 x_prev.data_ptr(), out.data_ptr(), batch, m, k, m * k, gm * gk,
                 common.LOW_BIT_MAX, cluster)
     return out
+
+
+def _empty_classes(x_t: torch.Tensor) -> torch.Tensor:
+    """The launch's result, unwritten: (..., M/128, K/128) int32."""
+    (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
+    return torch.empty(lead + (m // 128, k // 128), dtype=torch.int32, device=x_t.device)

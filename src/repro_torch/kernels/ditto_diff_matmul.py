@@ -50,7 +50,14 @@ Dims must be multiples of 128 (:func:`repro_torch.kernels.ops.ditto_linear_step`
 zero-pads). On a CPU tensor the wrapper runs the plain version, which
 drops class-0 tiles exactly as the kernel skips it (and packs class-1
 tiles for ``low_bits=4``); on a CUDA tensor it launches the kernel or
-raises.
+raises. Off the CPU it reports each launch to ``common.record_work``: its
+static arguments (the operands' shapes and dtypes, ``low_bits``,
+``w_transposed``, whether ``y_prev`` is given) and its work. The work
+depends on the classes, which a fake tensor does not hold, so it reports
+the dense count: ``2 batch M N K`` operations and every operand's bytes,
+as if every class tile were live. On a fake or meta tensor (the runner-key
+audit, ``repro_torch/analysis/trace_audit.py``) it reports the same and
+returns an empty int32 result of the output's shape, launching nothing.
 """
 from __future__ import annotations
 
@@ -105,6 +112,16 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
                          f"{tuple(w_q.shape)}")
     if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
         w_q = w_q.transpose(-1, -2).contiguous()
+    rows = math.prod(lead) * m
+    common.record_work(
+        "ditto_diff_matmul", flops=2.0 * rows * n * k,
+        nbytes=float(2 * x_t.numel() + w_q.numel() + 4 * classes.numel()
+                     + 4 * rows * n * (1 if y_prev is None else 2)),
+        dtype=torch.int8,
+        static=dict(operands=common.operands(x_t, x_prev, w_q, y_prev, classes),
+                    low_bits=low_bits, w_transposed=w_transposed, y_prev=y_prev is not None))
+    if common.is_fake(x_t):
+        return _empty_out(x_t, w_q)
     common.check_cuda_operand("ditto_diff_matmul x_t", x_t, torch.int8)
     common.check_cuda_operand("ditto_diff_matmul x_prev", x_prev, torch.int8)
     common.check_cuda_operand("ditto_diff_matmul w_q", w_q, torch.int8)
@@ -124,12 +141,19 @@ def launch(x_t, x_prev, w_nk, y_prev, classes, low_bits, splits=0) -> torch.Tens
     count. ``splits`` 0 is the kernel's own K split, a positive count forces
     it (the parity of every split count in chip_smoke.py, the split sweep
     of benchmarks/torch_diff_gemm_sweep.py)."""
+    common.validate_low_bits(low_bits)
     (m, k), n = x_t.shape[-2:], w_nk.shape[-2]
     lead = x_t.shape[:-2]
-    out = torch.empty(lead + (m, n), dtype=torch.int32, device=x_t.device)
+    out = _empty_out(x_t, w_nk)
     common.call("ditto_diff_matmul", "ditto_diff_matmul", _ARGTYPES, x_t.device,
                 x_t.data_ptr(), x_prev.data_ptr(), w_nk.data_ptr(),
                 None if y_prev is None else y_prev.data_ptr(), classes.data_ptr(),
                 out.data_ptr(), math.prod(lead), m, n, k, m * k, n * k, m * n,
                 (m // 128) * (k // 128), low_bits, splits)
     return out
+
+
+def _empty_out(x_t: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """The launch's result, unwritten: (..., M, N) int32 for W (..., N, K)."""
+    return torch.empty(x_t.shape[:-1] + (w_nk.shape[-2],), dtype=torch.int32,
+                       device=x_t.device)

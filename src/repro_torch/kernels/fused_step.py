@@ -48,7 +48,15 @@ it to count the TPU's copies.
 On a CPU tensor each wrapper runs its plain version (``kernels.ref``); on
 a CUDA tensor it launches the kernel or raises. Dims must be multiples of
 128 (:func:`repro_torch.kernels.ops.ditto_linear_step` zero-pads); a
-leading batch dim runs as the grid's z axis.
+leading batch dim runs as the grid's z axis. Off the CPU each wrapper
+reports a launch to ``common.record_work``: its static arguments (the
+operands' shapes and dtypes; for the GEMM ``w_transposed`` and whether
+``y_prev`` is given) and its work. The work depends on the classes, which
+a fake tensor does not hold, so the reports are the dense counts: every
+class tile live, both Δ-cache planes written and read whole. On a fake or
+meta tensor (the runner-key audit, ``repro_torch/analysis/trace_audit.py``)
+a wrapper reports the same and returns empty outputs of the card's
+shapes and dtypes, launching nothing.
 """
 from __future__ import annotations
 
@@ -60,7 +68,8 @@ import torch
 from . import common
 from .ref import diff_encode_fused_ref, ditto_fused_matmul_ref
 
-__all__ = ["diff_encode_fused", "ditto_fused_matmul", "hold_maps"]
+__all__ = ["diff_encode_fused", "ditto_fused_matmul", "hold_maps", "launch_encode",
+           "launch_matmul", "encode_launches", "matmul_launches"]
 
 #: Kernel launches so far, per kernel (chip_smoke.py zeroes them and reads
 #: them around a run).
@@ -93,6 +102,12 @@ def diff_encode_fused(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
         return diff_encode_fused_ref(x_t, x_prev, (bm, bk))
     if (bm, bk) != (128, 128):
         raise ValueError(f"diff_encode_fused: the CUDA kernel tiles by 128, got ({bm}, {bk})")
+    tiles = math.prod(x_t.shape[:-2]) * (m // 128) * (k // 128)
+    common.record_work("diff_encode_fused", flops=0.0,
+                       nbytes=float(2 * x_t.numel() + 4 * tiles + x_t.numel() // 2 + x_t.numel()),
+                       dtype=torch.int8, static=dict(operands=common.operands(x_t, x_prev)))
+    if common.is_fake(x_t):
+        return _empty_cache(x_t)
     common.check_cuda_operand("diff_encode_fused x_t", x_t, torch.int8)
     common.check_cuda_operand("diff_encode_fused x_prev", x_prev, torch.int8)
     out = launch_encode(x_t, x_prev)
@@ -106,9 +121,7 @@ def launch_encode(x_t: torch.Tensor, x_prev: torch.Tensor, cluster: int = 0
     count. ``cluster`` as in :func:`repro_torch.kernels.diff_encode.launch`."""
     (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
     batch, gm, gk = math.prod(lead), m // 128, k // 128
-    classes = torch.empty(lead + (gm, gk), dtype=torch.int32, device=x_t.device)
-    dc = torch.empty(lead + (m, k // 2), dtype=torch.int8, device=x_t.device)
-    dh = torch.empty(lead + (m, k), dtype=torch.int8, device=x_t.device)
+    classes, dc, dh = _empty_cache(x_t)
     cluster = cluster or common.encode_cluster(batch * gm * gk, common.sm_count(x_t.device))
     common.call("diff_encode_fused", "ditto_diff_encode_fused", _ENCODE_ARGTYPES, x_t.device,
                 x_t.data_ptr(), x_prev.data_ptr(), classes.data_ptr(), dc.data_ptr(),
@@ -152,6 +165,16 @@ def ditto_fused_matmul(w_q: torch.Tensor, dcache: torch.Tensor, dhigh: torch.Ten
                          f"{tuple(w_q.shape)}")
     if not w_transposed:  # the kernel reads W K-major, as int8 wgmma does
         w_q = w_q.transpose(-1, -2).contiguous()
+    rows = math.prod(lead) * m
+    common.record_work(
+        "ditto_fused_matmul", flops=2.0 * rows * n * k,
+        nbytes=float(dcache.numel() + dhigh.numel() + w_q.numel() + 4 * classes.numel()
+                     + 4 * rows * n * (1 if y_prev is None else 2)),
+        dtype=torch.int8,
+        static=dict(operands=common.operands(w_q, dcache, dhigh, classes, y_prev),
+                    w_transposed=w_transposed, y_prev=y_prev is not None))
+    if common.is_fake(dhigh):
+        return _empty_out(dhigh, w_q)
     common.check_cuda_operand("ditto_fused_matmul w_q", w_q, torch.int8)
     common.check_cuda_operand("ditto_fused_matmul dcache", dcache, torch.int8)
     common.check_cuda_operand("ditto_fused_matmul dhigh", dhigh, torch.int8)
@@ -169,13 +192,29 @@ def launch_matmul(w_nk, dcache, dhigh, classes, y_prev, splits=0) -> torch.Tenso
     :func:`repro_torch.kernels.ditto_diff_matmul.launch`."""
     (m, k), n = dhigh.shape[-2:], w_nk.shape[-2]
     lead = dhigh.shape[:-2]
-    out = torch.empty(lead + (m, n), dtype=torch.int32, device=dhigh.device)
+    out = _empty_out(dhigh, w_nk)
     common.call("ditto_fused_matmul", "ditto_fused_matmul", _MATMUL_ARGTYPES, dhigh.device,
                 w_nk.data_ptr(), dcache.data_ptr(), dhigh.data_ptr(), classes.data_ptr(),
                 None if y_prev is None else y_prev.data_ptr(), out.data_ptr(),
                 math.prod(lead), m, n, k, n * k, m * k, m * n, (m // 128) * (k // 128),
                 splits)
     return out
+
+
+def _empty_cache(x_t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused encode's results, unwritten: classes (..., M/128, K/128)
+    int32, dc (..., M, K/2) int8, dh (..., M, K) int8."""
+    (m, k), lead = x_t.shape[-2:], x_t.shape[:-2]
+    classes = torch.empty(lead + (m // 128, k // 128), dtype=torch.int32, device=x_t.device)
+    dc = torch.empty(lead + (m, k // 2), dtype=torch.int8, device=x_t.device)
+    dh = torch.empty(lead + (m, k), dtype=torch.int8, device=x_t.device)
+    return classes, dc, dh
+
+
+def _empty_out(dhigh: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
+    """The fused GEMM's result, unwritten: (..., M, N) int32 for W (..., N, K)."""
+    return torch.empty(dhigh.shape[:-1] + (w_nk.shape[-2],), dtype=torch.int32,
+                       device=dhigh.device)
 
 
 def hold_maps(classes: torch.Tensor, gn: int, *, w_transposed: bool = False):

@@ -37,10 +37,11 @@ zero-pads, exactly as the reference's ops wrapper does). On a CPU tensor
 the wrapper runs the plain version (``kernels.ref``); on a CUDA tensor it
 launches the kernel or raises. On the card it reports each launch's work
 (``2 batch M N K`` int8 operations, the operands' and the int32 result's
-bytes) to ``common.record_work``. On a fake or meta tensor (the step
-analyzer's dry run, ``repro_torch/launch/op_analysis.py``) it reports the same work
-and returns an empty int32 result of the output's shape: it carries no
-data and launches nothing.
+bytes) and its static arguments to ``common.record_work``. On a fake or
+meta tensor (the step analyzer's dry run, ``repro_torch/launch/op_analysis.py``;
+the runner-key audit, ``repro_torch/analysis/trace_audit.py``) it reports the
+same and returns an empty int32 result of the output's shape: it carries
+no data and launches nothing.
 """
 from __future__ import annotations
 
@@ -79,7 +80,8 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *, bm: int = 128, bn: int 
     lead = x_q.shape[:-2]
     common.record_work("int8_matmul", flops=2.0 * math.prod(lead) * m * n * k,
                        nbytes=float(x_q.numel() + w_q.numel() + 4 * math.prod(lead) * m * n),
-                       dtype=torch.int8)
+                       dtype=torch.int8,
+                       static=dict(operands=common.operands(x_q, w_q), w_transposed=w_transposed))
     if common.is_fake(x_q):
         return torch.empty(lead + (m, n), dtype=torch.int32, device=x_q.device)
     common.check_cuda_operand("int8_matmul x_q", x_q, torch.int8)

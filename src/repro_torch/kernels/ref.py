@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import LOW_BIT_MAX
+from .common import LOW_BIT_MAX, validate_low_bits
 from .int4_pack import pack_int4, unpack_int4_lanes
 
 
@@ -80,6 +80,7 @@ def ditto_diff_matmul_ref(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Te
     ``low_bits=4`` the class-1 tiles go through the packed-int4 word:
     ``pack_int4`` -> ``unpack_int4_lanes`` -> even/odd lane products.
     """
+    validate_low_bits(low_bits)
     d = x_t.to(torch.int32) - x_prev.to(torch.int32)
     if classes is not None:
         d = d * tile_mask(classes, tile, lambda c: c != 0)
