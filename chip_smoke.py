@@ -245,14 +245,23 @@ Phases (any failure raises and the script exits non-zero):
              stack on each microbatch, 784 ``int8_matmul`` launches each
              equal to the plain version; the walls of both (on one card,
              the schedule's own cost) and their device activities and
-             time (``torch.profiler``).
+             time (``torch.profiler``); (e) qwen3-0.6b's steps built with
+             ``shard=make_shard_fn(rules, mesh)`` on the (1, 1) mesh, the
+             inputs laid out by the dry run's layouts: a 4096-token
+             prefill (B = 1), 8 decode steps (B = 16, 4096 slots, the
+             cache allocated in its layout) and a depth-2 train step with
+             its update (B = 4, S = 4096), each output bit for bit against
+             the unsharded step, both walls printed (DTensor's host
+             dispatch in the sharded one).
 14. launch — the launch tooling: (a) ``launch/dryrun.py``'s one-card
              record of every (arch, shape) cell at full width, at the
              batches the earlier phases cut the cells to (the recurrent
              families' ``prefill_32k`` and ``train_4k`` also at S = 512),
              counted on fake tensors in worker processes that cannot see
-             the card, and the layout records of both production meshes
-             here, the card's memory unmoved; (b) the dry run held against
+             the card, the layout records of both production meshes
+             here and qwen3-0.6b's sharded train, prefill and decode steps
+             counted for one rank of the fake 16x16 mesh, the card's
+             memory unmoved; (b) the dry run held against
              the card on qwen3-0.6b's ``prefill_32k`` (B = 1),
              ``decode_32k`` (B = 16, 32768 slots) and ``train_4k`` (B = 4)
              and DiT-XL/2's float32 and W8A8 denoiser (B = 2): the
@@ -299,6 +308,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.analysis import trace_audit  # noqa: E402
@@ -2718,6 +2729,12 @@ DIST_GRAD_SEQ = LMT_SEQ  # (c): one full-depth loss_and_grads at S = 4096, B = 1
 DIST_ROUNDS = 20  # (c): g (1 + 0.05 i), as examples/train_lm.py
 DIST_TOL = 1e-4  # (c): tests/test_runtime.py::test_compressed_psum_error_feedback_converges
 PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 4, 4, 4  # (d): 4 stages of 7 blocks, B = 16
+# (e): the sharded steps (shard=) on the one-rank (1, 1) mesh against the
+# unsharded ones, bit for bit: a prefill (B, S), decode steps (B, steps,
+# cache slots), a train step (B, S, depth)
+SHARD_PREFILL = (1, 4096)
+SHARD_DECODE = (16, 8, 4096)
+SHARD_TRAIN = (4, 4096, 2)
 PIPE_KERNELS = ("int8_matmul",)
 
 
@@ -2842,6 +2859,127 @@ def dist_allreduce() -> dict:
     return out
 
 
+def _laid_out(tree_, lays):
+    """A copy of ``tree_`` laid out on ``lays`` (a copy: on one rank a layout
+    may alias its input, which the unsharded step then writes)."""
+    return tree.unflatten_like(tree_, [sharding.layout(a.clone(), lay) for a, lay in
+                                       zip(tree.leaves(tree_), tree.leaves(lays))])
+
+
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def dist_sharded(mesh) -> dict:
+    """(e): qwen3-0.6b's steps built with ``shard=make_shard_fn(rules, mesh)``
+    on the one-rank (1, 1) mesh, their inputs laid out by the dry run's
+    layouts (params, optimizer state, batch; the decode cache allocated in
+    ``cache_shardings_dict``'s): a prefill, decode steps and a depth-2 train
+    step with its update, each output held bit for bit to the unsharded
+    step on the same inputs; both walls, the sharded one DTensor's host
+    dispatch included (its first call propagates every op's layout)."""
+    from repro_torch.models import LM
+
+    arch = lm_arch(DIST_LM)
+    rules = sharding.make_rules(arch)
+    shard = sharding.make_shard_fn(rules, mesh)
+    axes, _ = train_steps.param_axes(arch)
+    params = LM(arch).init(torch.Generator(device=DEVICE).manual_seed(71), device=DEVICE)
+    sparams = _laid_out(params, sharding.param_shardings(axes, params, rules, mesh))
+    g = torch.Generator(device=DEVICE).manual_seed(73)
+    out: dict = {"arch": arch.name, "mesh": list(mesh.shape)}
+    mismatched = []
+
+    def tokens(b, s):
+        return torch.randint(0, arch.vocab_size, (b, s), generator=g, device=DEVICE)
+
+    def batch_lays(kind, b, s):
+        return dryrun.batch_shardings(arch, configs.ShapeCell("x", kind, s, b), mesh, rules)[0]
+
+    # ---- prefill
+    b, s = SHARD_PREFILL
+    toks = tokens(b, s)
+    stoks = sharding.layout(toks, batch_lays("prefill", b, s)["tokens"])
+    (want, plain_s) = synced_wall(lambda: train_steps.make_prefill_step(arch)(
+        params, {"tokens": toks}))
+    prefill = train_steps.make_prefill_step(arch, shard=shard)
+    (got, first_s) = synced_wall(lambda: prefill(sparams, {"tokens": stoks}))
+    same = [torch.equal(_whole(x), y) for x, y in
+            zip([got[0]] + [got[1][k] for k in sorted(want[1])],
+                [want[0]] + [want[1][k] for k in sorted(want[1])])]
+    if not all(same):
+        mismatched.append("prefill")
+    del got
+    (_, sharded_s) = synced_wall(lambda: prefill(sparams, {"tokens": stoks}))
+    out["prefill"] = dict(batch=b, seq=s, bit_identical=all(same), plain_s=plain_s,
+                          sharded_first_s=first_s, sharded_s=sharded_s)
+    del want
+    free_card()
+
+    # ---- decode steps from an empty cache
+    b, steps, slots = SHARD_DECODE
+    cache = LM(arch).init_cache(b, slots, device=DEVICE)
+    scache = LM(arch, shard=shard).init_cache(b, slots, device=DEVICE)
+    decode, sdecode = (train_steps.make_decode_step(arch),
+                       train_steps.make_decode_step(arch, shard=shard))
+    walls = {"plain": [], "sharded": []}
+    same = []
+    for i in range(steps):
+        toks = tokens(b, 1)
+        (want, w) = synced_wall(lambda: decode(params, cache, {"tokens": toks, "pos": i}))
+        walls["plain"].append(w)
+        stoks = shard(toks, ("batch", None))
+        (got, w) = synced_wall(lambda: sdecode(sparams, scache, {"tokens": stoks, "pos": i}))
+        walls["sharded"].append(w)
+        same.append(torch.equal(_whole(got[0]), want[0]))
+    same += [torch.equal(_whole(scache[k]), cache[k]) for k in cache]
+    if not all(same):
+        mismatched.append("decode")
+    out["decode"] = dict(batch=b, steps=steps, cache_slots=slots, bit_identical=all(same),
+                         plain_step_ms_median=statistics.median(walls["plain"]) * 1e3,
+                         sharded_step_ms_median=statistics.median(walls["sharded"][1:]) * 1e3,
+                         sharded_first_step_ms=walls["sharded"][0] * 1e3,
+                         cache_placements=[str(p) for p in scache["k"].placements])
+    del cache, scache, params, sparams
+    free_card()
+
+    # ---- a train step with its update, depth 2
+    b, s, layers = SHARD_TRAIN
+    arch2 = dataclasses.replace(arch, n_layers=layers)
+    opt = train_steps.make_optimizer(arch2)
+    state = train_steps.init_state(arch2, 79, opt, device=DEVICE)
+    sstate = _laid_out(state, dryrun.state_shardings(arch2, mesh, rules, opt))
+    sstate["rng"] = state["rng"].clone()  # the noise seed stays a host int64, as unsharded
+    batch = batch_for(arch2, DataCfg(seed=83, batch=b, seq_len=s), 0, device=DEVICE)
+    lays = batch_lays("train", b, s)
+    sbatch = {k: sharding.layout(v, lays[k]) for k, v in batch.items()}
+    ((new, metrics), plain_s) = synced_wall(lambda: train_steps.make_train_step(arch2, opt)(
+        state, batch))
+    step = train_steps.make_train_step(arch2, opt, shard=shard,
+                                       batch_shards=dryrun._batch_shards(mesh, rules))
+    ((snew, smetrics), sharded_s) = synced_wall(lambda: step(sstate, sbatch))
+    same = [torch.equal(_whole(smetrics[k]), metrics[k]) for k in metrics]
+    same += [torch.equal(_whole(x), y) for x, y in zip(tree.leaves(snew), tree.leaves(new))]
+    if not all(same):
+        mismatched.append("train")
+    out["train"] = dict(batch=b, seq=s, layers=layers, leaves=len(tree.leaves(new)),
+                        bit_identical=all(same), loss=float(metrics["loss"]),
+                        plain_s=plain_s, sharded_first_s=sharded_s)
+    del state, sstate, new, snew
+    free_card()
+    say(f"distributed sharded steps: {json.dumps(out)}")
+    say(f"distributed sharded walls: prefill {out['prefill']['plain_s']:.3f} s plain, "
+        f"{out['prefill']['sharded_s']:.3f} s sharded ({out['prefill']['sharded_first_s']:.3f} s "
+        f"first); decode {out['decode']['plain_step_ms_median']:.1f} ms a step plain, "
+        f"{out['decode']['sharded_step_ms_median']:.1f} ms sharded; train step "
+        f"{out['train']['plain_s']:.3f} s plain, {out['train']['sharded_first_s']:.3f} s sharded "
+        f"(first call)")
+    if mismatched:
+        raise AssertionError(f"distributed sharded steps differ from the unsharded: "
+                             f"{mismatched}: {out}")
+    return out
+
+
 def pipe_layer(cfg):
     """``layer_fn`` of the W8A8 pipeline: a microbatch's activation is its
     tokens with the activated conditioning appended as one more row (both
@@ -2922,7 +3060,8 @@ def dist_pipeline() -> dict:
 def phase_distributed() -> dict:
     """The rest of ``distributed/`` on one rank: (a) the sharding rules of
     every config, (b) layouts and the elastic restore, (c) the compressed
-    all-reduce, (d) the W8A8 pipeline."""
+    all-reduce, (d) the W8A8 pipeline, (e) the sharded LM steps (``shard=``)
+    against the unsharded ones."""
     free_card()
     t_phase = time.perf_counter()
     zero_counts()
@@ -2938,7 +3077,10 @@ def phase_distributed() -> dict:
         t = time.perf_counter()
         out["allreduce"] = dist_allreduce()
         walls["c"] = time.perf_counter() - t
-    if any(launch_counts().values()):  # (a) - (c) reach no TPU kernel
+        t = time.perf_counter()
+        out["sharded"] = dist_sharded(mesh_mod.make_test_mesh())
+        walls["e"] = time.perf_counter() - t
+    if any(launch_counts().values()):  # (a) - (c), (e) reach no TPU kernel
         raise AssertionError(f"distributed: a Ditto kernel launched: {launch_counts()}")
     t = time.perf_counter()
     out["pipeline"] = dist_pipeline()
@@ -2965,6 +3107,10 @@ LAUNCH_DIT_BATCH = B  # the denoiser cells: the slice's B = 2
 LAUNCH_REC_SEQ = dryrun.EXTRAPOLATE_LEN
 LAUNCH_WORKERS = max(1, (os.cpu_count() or 2) - 1)  # (a): a process a core, the card hidden
 LAUNCH_PEAK_TOL = 0.2  # (b): predicted against measured peak, relative
+# (a): the sharded step of these cells on the fake 16x16 mesh (every other
+# production cell: its layouts)
+LAUNCH_PROGRAMS = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+                   ("qwen3-0.6b", "decode_32k"))
 LAUNCH_TIMED = 3  # (b): timed runs a cell after the counted one (the LM prefill: 1)
 # (b): (arch, shape, batch, variant)
 LAUNCH_CHECKS = (
@@ -3013,8 +3159,9 @@ def dry_cell(cell) -> dict:
 def launch_dry_all() -> dict:
     """(a): the one-card dry run of every cell at full width, on fake
     tensors in worker processes that cannot see the card, then the layout
-    records of both production meshes in this process; no card memory may
-    move."""
+    records of both production meshes and the sharded steps of
+    ``LAUNCH_PROGRAMS`` on the fake 16x16 mesh in this process; no card
+    memory may move."""
     import multiprocessing
 
     torch.cuda.synchronize()
@@ -3037,9 +3184,16 @@ def launch_dry_all() -> dict:
         say(f"launch (a) {rec['arch']} {rec['shape']} B={rec.get('batch')} S={rec.get('seq')} "
             f"{rec['status']}{dryrun.summary(rec)}")
     t = time.perf_counter()
-    layouts = [dryrun.run_cell(name, shape, mesh=m)
+    layouts = [dryrun.run_cell(name, shape, mesh=m, program=False)
                for name in configs.names() for shape in configs.SHAPES
                for m in ("16x16", "2x16x16")]
+    layout_s = time.perf_counter() - t
+    t = time.perf_counter()
+    programs = [dryrun.run_cell(name, shape, mesh="16x16") for name, shape in LAUNCH_PROGRAMS]
+    for rec in programs:
+        say(f"launch (a) {rec['arch']} {rec['shape']} 16x16 sharded step "
+            f"{rec['status']}{dryrun.summary(rec)} collectives "
+            f"{json.dumps(rec['collectives']['by_op'])}")
     for rec in layouts:
         say(f"launch (a) {rec['arch']} {rec['shape']} {rec['mesh']} "
             f"{rec['status']}{dryrun.summary(rec)}")
@@ -3048,11 +3202,14 @@ def launch_dry_all() -> dict:
                skip=sum(r["status"] == "skip" for r in recs),
                layout=sum(r["status"] == "layout" for r in layouts),
                fits=sum(bool(r.get("fits")) for r in recs),
-               one_card_wall_s=one_card_s, layout_wall_s=time.perf_counter() - t,
+               programs=sum(r["status"] == "ok" for r in programs),
+               one_card_wall_s=one_card_s, layout_wall_s=layout_s,
+               program_wall_s=time.perf_counter() - t,
                workers=LAUNCH_WORKERS,
                allocated_delta=torch.cuda.memory_allocated() - held,
                peak_delta=torch.cuda.max_memory_allocated() - held)
     bad = [r for r in recs + layouts if r["status"] not in ("ok", "skip", "layout")]
+    bad += [r for r in programs if r["status"] != "ok"]
     if bad:
         raise AssertionError(f"launch (a): cells failed: {bad}")
     if out["allocated_delta"] or out["peak_delta"]:
@@ -3189,8 +3346,8 @@ def launch_check(name, shape, batch, variant) -> dict:
 
 
 def phase_launch() -> dict:
-    """The launch tooling: (a) the one-card dry run of every cell and the
-    production meshes' layouts, on fake tensors; (b) the dry run held
+    """The launch tooling: (a) the one-card dry run of every cell, the
+    production meshes' layouts and three sharded steps, on fake tensors; (b) the dry run held
     against the card on cells the earlier phases run."""
     free_card()
     t_phase = time.perf_counter()

@@ -30,6 +30,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import tree as tr
 from ..distributed.sharding import layout
@@ -40,7 +41,10 @@ def _flatten(tree) -> dict:
 
 
 def _to_host(leaf) -> torch.Tensor:
-    """A host copy of a leaf that later in-place updates cannot touch."""
+    """A host copy of a leaf that later in-place updates cannot touch (a
+    DTensor's whole value)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     return torch.as_tensor(leaf).detach().to("cpu", copy=True)
 
 

@@ -33,15 +33,26 @@ itself: which rows each of the ``dp`` devices holds. When ``dp`` divides
 the batch the rows are split into ``dp`` equal, consecutive groups; when
 it does not, every device holds the whole batch (replicated), as the
 reference's divisibility fallback lays it out.
+
+Inside a step (``shard=``, the reference's ``with_sharding_constraint``):
+:class:`ShardFn` lays a tensor out by the rules; :func:`replicating`
+runs a step's block under ``implicit_replication``; and where DTensor's
+own rules fail or cost too much, a region runs on each rank's blocks
+under ``local_map`` (:func:`row_local`, :func:`elementwise`), or a split
+is gathered first (:func:`unflatten`). :func:`full` allocates a DTensor
+block by block (the decode cache in :func:`cache_shardings_dict`'s
+layout).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, NamedTuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication, local_map
 
 from .. import tree as tr
 from ..configs.base import ArchConfig
@@ -138,6 +149,76 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(Shard(dim_of[n]) if n in dim_of else Replicate() for n in names)
 
 
+def spec_layout(mesh, spec: tuple) -> Layout:
+    """The :class:`Layout` of a partition spec over ``mesh``."""
+    return Layout(mesh, placements(spec, mesh))
+
+
+def batch_axes(mesh, rules: dict) -> tuple:
+    """The mesh axes of ``rules``' batch axes that ``mesh`` has."""
+    return tuple(a for a in (rules["batch"] or ()) if a in mesh_axes(mesh))
+
+
+def cache_shardings_dict(arch, mesh, rules, cache_shapes: dict) -> dict[str, Layout]:
+    """A :class:`Layout` for each tensor of an LM's decode cache (shapes as
+    ``models/lm.py:init_cache`` makes them), as the reference's dry run lays
+    it out: the batch dim over the batch axes where it divides them, and
+    'model' on the kv heads (else the cache length), the recurrent states'
+    heads or width, where it divides."""
+    sizes = mesh_axes(mesh)
+    batch_axis = batch_axes(mesh, rules)
+
+    def div(n, axis="model"):
+        return n % sizes[axis] == 0
+
+    bprod = math.prod(sizes[a] for a in batch_axis)
+    b_first = batch_axis[0] if len(batch_axis) == 1 else (batch_axis or None)
+    out = {}
+    for key, t in cache_shapes.items():
+        shp = tuple(t.shape)
+
+        def bat(dim):
+            return b_first if (batch_axis and shp[dim] % bprod == 0) else None
+
+        if key in ("k", "v", "a_k", "a_v"):
+            if div(shp[3]):
+                spec = (None, bat(1), None, "model", None)
+            elif div(shp[2]):
+                spec = (None, bat(1), "model", None, None)
+            else:
+                spec = (None, bat(1), None, None, None)
+        elif key in ("m_C", "m_n", "m_m"):
+            rest = [None] * (len(shp) - 3)
+            if len(shp) > 3 and div(shp[3]):
+                rest[0] = "model"
+            elif len(shp) > 4 and div(shp[4]):
+                rest[1] = "model"
+            spec = (None, None, bat(2), *rest)
+        elif key.startswith("s_"):
+            rest = [None] * (len(shp) - 2)
+            if div(shp[-1]):
+                rest[-1] = "model"
+            spec = (None, bat(1), *rest)
+        elif key in ("m_h", "m_conv"):
+            rest = [None] * (len(shp) - 3)
+            if key == "m_h" and div(shp[3]):
+                rest[0] = "model"
+            if key == "m_conv" and div(shp[4]):
+                rest[1] = "model"
+            spec = (None, None, bat(2), *rest)
+        elif key in ("t_h", "t_conv"):
+            rest = [None] * (len(shp) - 2)
+            if key == "t_h" and div(shp[2]):
+                rest[0] = "model"
+            if key == "t_conv" and div(shp[3]):
+                rest[1] = "model"
+            spec = (None, bat(1), *rest)
+        else:  # a_p and friends: replicated
+            spec = (None,) * len(shp)
+        out[key] = spec_layout(mesh, spec)
+    return out
+
+
 def param_shardings(axes_tree, shape_tree, rules: dict, mesh):
     """A :class:`Layout` tree matching a (split) param tree; ``shape_tree``'s
     leaves have a ``.shape`` (tensors, meta tensors)."""
@@ -171,17 +252,150 @@ def layout(a: torch.Tensor, lay: Layout) -> DTensor:
     return distribute_tensor(a, lay.mesh, list(lay.placements))
 
 
+def reduced(a: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending sums (``Partial`` placements) reduced to
+    ``Replicate``; anything else as it is."""
+    if isinstance(a, DTensor) and any(p.is_partial() for p in a.placements):
+        return a.redistribute(placements=[Replicate() if p.is_partial() else p
+                                          for p in a.placements])
+    return a
+
+
+class ShardFn:
+    """The reference's ``shard`` inside a step: ``shard(tensor, logical_axes)``
+    lays the tensor out by :func:`spec_for` on ``mesh``. A DTensor is
+    redistributed; a plain tensor is taken as a value that every rank
+    holds (a tensor the step made itself, as a traced value is global in
+    the reference) and sliced locally, with no communication. ``mesh`` and
+    ``rules`` are kept for the layouts a step allocates in
+    (``models/lm.py``'s cache)."""
+
+    def __init__(self, rules: dict, mesh: DeviceMesh):
+        self.rules, self.mesh = rules, mesh
+
+    def layout_for(self, shape: tuple, axes: tuple) -> Layout:
+        """The layout of :func:`spec_for`, a split over a mesh axis of one
+        rank written ``Replicate`` (the same block: DTensor refuses to fold
+        a dim of size 1 split over one rank into its neighbour, as a
+        product of a decode's single MoE group does)."""
+        pl = placements(spec_for(axes, tuple(shape), self.rules, self.mesh), self.mesh)
+        return Layout(self.mesh, tuple(Replicate() if n == 1 else p
+                                       for n, p in zip(self.mesh.shape, pl)))
+
+    def __call__(self, a: torch.Tensor, axes: tuple) -> DTensor:
+        lay = self.layout_for(tuple(a.shape), axes)
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, self.mesh, [Replicate()] * self.mesh.ndim,
+                                   run_check=False)
+        return layout(a, lay)
+
+
+def no_shard(a: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """The identity ``shard``: a step built without a mesh."""
+    return a
+
+
 def make_shard_fn(rules: dict, mesh: DeviceMesh | None):
     """fn(tensor, logical_axes) -> the tensor laid out by :func:`spec_for`
-    on ``mesh``; the identity for ``mesh=None``."""
-    if mesh is None:
-        return lambda a, axes: a
+    on ``mesh`` (a :class:`ShardFn`); :func:`no_shard` for ``mesh=None``."""
+    return no_shard if mesh is None else ShardFn(rules, mesh)
 
-    def shard(a, axes):
-        return layout(a, Layout(mesh, placements(spec_for(axes, tuple(a.shape), rules, mesh),
-                                                 mesh)))
 
-    return shard
+def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn`` whose DTensor backward fails
+    (``softplus_backward`` labels a block contiguous that follows a
+    transposed gradient): on a DTensor, each rank applies it to its own
+    block under ``local_map`` (a pending sum reduced first); on a plain
+    tensor, ``fn(x)``."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = reduced(x)
+    pl = list(x.placements)
+    return local_map(fn, out_placements=pl, in_placements=(pl,), device_mesh=x.device_mesh)(x)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``; on a DTensor whose ``dim`` is split over
+    mesh dims that do not divide ``sizes[0]`` (a width split finer than its
+    heads: 8 kv heads over 16 ranks), that split gathered first. DTensor
+    refuses to unflatten a dim split unevenly; the reference's GSPMD
+    reshards there."""
+    if isinstance(x, DTensor):
+        d, pl, split = dim % x.dim(), list(x.placements), 1
+        for i, p in enumerate(pl):
+            if p.is_shard(d):
+                if sizes[0] % (split * x.device_mesh.size(i)):
+                    pl[i] = Replicate()
+                else:
+                    split *= x.device_mesh.size(i)
+        if pl != list(x.placements):
+            x = x.redistribute(placements=pl)
+    return x.unflatten(dim, sizes)
+
+
+def row_local(fn, n_out: int, rows: tuple, shared: tuple = ()):
+    """``fn(*rows, *shared)``, whose work is local to each row of dim 0 of
+    every ``rows`` tensor and of its ``n_out`` results (a batch row, an MoE
+    group), ``shared`` the tensors every row reads (weights). On DTensors
+    each rank runs it on its rows under ``local_map``: the rows split as the
+    first DTensor among ``rows`` splits its dim 0 (gathered over any other
+    split), ``shared`` whole, their gradients summed over the row split; a
+    plain tensor is taken as replicated. DTensor's own rules inside such a
+    region (a recurrence's thousands of small ops, an MoE's sort, scatter
+    and gather) cost seconds of layout search, and may split the sequence
+    in the backward where a later reshape cannot undo it."""
+    args = rows + shared
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    whole = [Replicate()] * mesh.ndim
+    lead = next((a for a in rows if isinstance(a, DTensor)), None)
+    pl = whole if lead is None else [p if p == Shard(0) else Replicate() for p in lead.placements]
+    summed = [Partial() if p == Shard(0) else Replicate() for p in pl]
+    args = tuple(a if isinstance(a, DTensor) else
+                 DTensor.from_local(a, mesh, whole, run_check=False) for a in args)
+    return local_map(fn, out_placements=(pl,) * n_out if n_out > 1 else pl,
+                     in_placements=(pl,) * len(rows) + (whole,) * len(shared),
+                     in_grad_placements=(pl,) * len(rows) + (summed,) * len(shared),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+_REPLICATING = [0]
+
+
+@contextlib.contextmanager
+def replicating(shard):
+    """The block of a step built with ``shard``: where ``shard`` lays tensors
+    out on a mesh (a :class:`ShardFn`), under ``implicit_replication``, so
+    that a plain tensor the step makes itself (positions, RoPE tables,
+    recurrent carries, the loss's scalars) meets the step's DTensors as a
+    replicated one, as a traced constant is global in the reference. Else,
+    and inside a block already under it, nothing changes. Reentrant, unlike
+    ``implicit_replication`` itself, whose exit clears the flag."""
+    if getattr(shard, "mesh", None) is None or _REPLICATING[0]:
+        yield
+        return
+    _REPLICATING[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _REPLICATING[0] -= 1
+
+
+def full(shape: tuple, fill, dtype: torch.dtype, lay: Layout, device) -> DTensor:
+    """A DTensor of ``shape`` filled with ``fill``, laid out on ``lay``: each
+    rank allocates its own block on ``device`` and nothing else. Every
+    sharded dim must divide its mesh axes."""
+    local = list(shape)
+    for n, p in zip(mesh_axes(lay.mesh).values(), lay.placements):
+        if isinstance(p, Shard):
+            if local[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not divide {n} ranks")
+            local[p.dim] //= n
+    return DTensor.from_local(torch.full(local, fill, dtype=dtype, device=device), lay.mesh,
+                              list(lay.placements), run_check=False)
 
 
 def replicated(mesh) -> Layout:

@@ -3,15 +3,20 @@ lay each cell out on the production meshes.
 
 Mirror of ``src/repro/launch/dryrun.py``. The reference lowers and compiles
 each cell for a mesh of 256 or 512 forced host devices and reads XLA's
-memory and cost analyses. The port has no compiler: on one card
-(``--mesh 1``) the cell's step runs once on fake tensors under
-``repro_torch/launch/op_analysis.py``, which counts its FLOPs, bytes, peak memory and
-collectives; ``roofline.py`` turns them into the H100's roofline terms.
-On the production meshes (``16x16``, ``2x16x16``) the record holds the
-bytes one device holds (params by ``distributed/sharding.py``'s rules,
-the AdamW moments, the decode cache, the batch) with ``status``
-``"layout"``: the port has no partitioned step, so a per-device program's
-terms (``cost``, ``collectives``, ``roofline``) are ``None``.
+memory and cost analyses. The port has no compiler: the cell's step runs
+once on fake tensors under ``repro_torch/launch/op_analysis.py``, which
+counts its FLOPs, bytes, peak memory and collectives; ``roofline.py``
+turns them into the H100's roofline terms. On one card (``--mesh 1``)
+that is the plain step. On the production meshes (``16x16``,
+``2x16x16``) it is the sharded step (``shard=``, ``launch/steps.py``) over
+DTensors on a ``DeviceMesh`` of 256 or 512 ranks of the ``fake`` backend
+(``launch/mesh.py:fake_mesh``, started and destroyed by the cell), its
+inputs laid out by ``distributed/sharding.py``'s rules, counted for one
+rank: the per-device program, its ``cost``, its ``collectives`` and its
+``roofline``. The record also holds the bytes the layouts put on one
+device (params, the AdamW moments, the decode cache, the batch). The W8A8
+denoiser (``variant="int8"``) stays at ``status`` ``"layout"``: its
+``int8_matmul`` wrapper has no DTensor path (``NO_PROGRAM``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape prefill_32k --mesh 1 --batch 1
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -40,26 +46,24 @@ from .. import configs
 from .. import tree as tr
 from ..configs.base import SHAPES, ArchConfig, ShapeCell, cell_applicable, input_specs
 from ..distributed import sharding as sh
+from ..distributed.sharding import cache_shardings_dict
 from ..models.lm import LM
 from ..optim import AdamW
 from . import op_analysis, roofline
 from . import steps as steps_mod
-from .mesh import make_production_mesh
+from .mesh import fake_mesh, make_production_mesh
 
 MESHES = ("1", "16x16", "2x16x16")
 #: The lengths the recurrent long cells are counted at: L, 2L, 3L.
 EXTRAPOLATE_LEN = 512
-NO_PROGRAM = ("the port has no partitioned step (ROADMAP item 9, shard=): a device's "
-              "program, its cost and its collectives are not defined")
+NO_PROGRAM = ("the W8A8 denoiser's int8_matmul wrapper has no DTensor path (ROADMAP item "
+              "16): a device's program, its cost and its collectives are not counted")
+LAYOUT_ONLY = "layouts only (program=False): the sharded step was not run"
 
 
 # --------------------------------------------------------------------------
 # layouts of state / batch / cache
 # --------------------------------------------------------------------------
-
-
-def _lay(mesh, spec: tuple) -> sh.Layout:
-    return sh.Layout(mesh, sh.placements(spec, mesh))
 
 
 def state_shardings(arch: ArchConfig, mesh, rules, opt: AdamW):
@@ -70,12 +74,12 @@ def state_shardings(arch: ArchConfig, mesh, rules, opt: AdamW):
     m_sh, v_sh = [], []
     for a, s in zip(tr.leaves(axes), tr.leaves(shapes)):
         spec = sh.spec_for(a, tuple(s.shape), rules, mesh)
-        m_sh.append(_lay(mesh, spec))
+        m_sh.append(sh.spec_layout(mesh, spec))
         if opt.factored and s.dim() >= 2:
-            v_sh.append({"row": _lay(mesh, spec[:-1]),
-                         "col": _lay(mesh, spec[:-2] + (spec[-1],))})
+            v_sh.append({"row": sh.spec_layout(mesh, spec[:-1]),
+                         "col": sh.spec_layout(mesh, spec[:-2] + (spec[-1],))})
         else:
-            v_sh.append(_lay(mesh, spec))
+            v_sh.append(sh.spec_layout(mesh, spec))
     return {
         "params": p_sh,
         "opt": {"m": m_sh, "v": v_sh, "step": sh.replicated(mesh)},
@@ -83,12 +87,8 @@ def state_shardings(arch: ArchConfig, mesh, rules, opt: AdamW):
     }
 
 
-def _batch_axes(mesh, rules) -> tuple:
-    return tuple(a for a in (rules["batch"] or ()) if a in sh.mesh_axes(mesh))
-
-
 def batch_shardings(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: int | None = None):
-    avail = _batch_axes(mesh, rules)
+    avail = sh.batch_axes(mesh, rules)
     size = math.prod(sh.mesh_axes(mesh)[a] for a in avail)
 
     def spec(t):
@@ -99,66 +99,11 @@ def batch_shardings(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: i
         return (None,) * t.dim()
 
     specs = input_specs(arch, shape, batch_override=batch)
-    return {k: _lay(mesh, spec(v)) for k, v in specs.items()}, specs
-
-
-def cache_shardings_dict(arch, mesh, rules, cache_shapes: dict):
-    sizes = sh.mesh_axes(mesh)
-    batch_axis = _batch_axes(mesh, rules)
-
-    def div(n, axis="model"):
-        return n % sizes[axis] == 0
-
-    bprod = math.prod(sizes[a] for a in batch_axis)
-    b_first = batch_axis[0] if len(batch_axis) == 1 else (batch_axis or None)
-    out = {}
-    for key, t in cache_shapes.items():
-        shp = tuple(t.shape)
-
-        def bat(dim):
-            return b_first if (batch_axis and shp[dim] % bprod == 0) else None
-
-        if key in ("k", "v", "a_k", "a_v"):
-            if div(shp[3]):
-                spec = (None, bat(1), None, "model", None)
-            elif div(shp[2]):
-                spec = (None, bat(1), "model", None, None)
-            else:
-                spec = (None, bat(1), None, None, None)
-        elif key in ("m_C", "m_n", "m_m"):
-            rest = [None] * (len(shp) - 3)
-            if len(shp) > 3 and div(shp[3]):
-                rest[0] = "model"
-            elif len(shp) > 4 and div(shp[4]):
-                rest[1] = "model"
-            spec = (None, None, bat(2), *rest)
-        elif key.startswith("s_"):
-            rest = [None] * (len(shp) - 2)
-            if div(shp[-1]):
-                rest[-1] = "model"
-            spec = (None, bat(1), *rest)
-        elif key in ("m_h", "m_conv"):
-            rest = [None] * (len(shp) - 3)
-            if key == "m_h" and div(shp[3]):
-                rest[0] = "model"
-            if key == "m_conv" and div(shp[4]):
-                rest[1] = "model"
-            spec = (None, None, bat(2), *rest)
-        elif key in ("t_h", "t_conv"):
-            rest = [None] * (len(shp) - 2)
-            if key == "t_h" and div(shp[2]):
-                rest[0] = "model"
-            if key == "t_conv" and div(shp[3]):
-                rest[1] = "model"
-            spec = (None, bat(1), *rest)
-        else:  # a_p and friends: replicated
-            spec = (None,) * len(shp)
-        out[key] = _lay(mesh, spec)
-    return out
+    return {k: sh.spec_layout(mesh, spec(v)) for k, v in specs.items()}, specs
 
 
 def _batch_shards(mesh, rules) -> int:
-    return math.prod(sh.mesh_axes(mesh)[a] for a in _batch_axes(mesh, rules))
+    return math.prod(sh.mesh_axes(mesh)[a] for a in sh.batch_axes(mesh, rules))
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +113,51 @@ def _batch_shards(mesh, rules) -> int:
 
 def _meta_cache(arch: ArchConfig, batch: int, length: int) -> dict:
     return LM(arch).init_cache(batch, length, device="meta")
+
+
+def _on_mesh(tree, lays):
+    """Each tensor of ``tree`` (a shape and a dtype) as a DTensor laid out
+    on its layout of ``lays``, the rank's block an empty ``meta`` tensor."""
+    return tr.unflatten_like(tree, [sh.full(tuple(t.shape), 0, t.dtype, lay, "meta")
+                                    for t, lay in zip(tr.leaves(tree), tr.leaves(lays))])
+
+
+def count_sharded(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: int) -> dict:
+    """``op_analysis.analyze`` of one cell's sharded step for one rank of
+    ``mesh`` (a ``DeviceMesh``): params, optimizer state, batch and decode
+    cache laid out by the rules on ``meta`` blocks, the LM steps built with
+    ``shard=make_shard_fn(rules, mesh)``; the diffusion steps, which take no
+    ``shard``, on the same layouts under ``sharding.replicating``."""
+    shard = sh.make_shard_fn(rules, mesh)
+    axes, shapes = steps_mod.param_axes(arch)
+    b_lays, specs = batch_shardings(arch, shape, mesh, rules, batch=batch)
+    # a 0-d input (the decode position) stays a plain tensor
+    inputs = {k: v if v.dim() == 0 else _on_mesh(v, b_lays[k]) for k, v in specs.items()}
+    with sh.replicating(shard):
+        if shape.kind == "train":
+            opt = steps_mod.make_optimizer(arch)
+            lays = state_shardings(arch, mesh, rules, opt)
+            state = {"params": _on_mesh(shapes, lays["params"]),
+                     "opt": _on_mesh(opt.init(shapes), lays["opt"]),
+                     "rng": torch.zeros((), dtype=torch.int64)}
+            step = steps_mod.make_train_step(arch, opt, shard=shard,
+                                             batch_shards=_batch_shards(mesh, rules))
+            if arch.family != "diffusion":
+                return op_analysis.analyze(step, state, inputs)
+            x0 = inputs["x0"]
+            t = sh.full(x0.shape[:1], 0, torch.int64,
+                        sh.Layout(mesh, b_lays["x0"].placements), "meta")
+            eps = sh.full(tuple(x0.shape), 0, step.adtype, b_lays["x0"], "meta")
+            return op_analysis.analyze(step.with_noise, state, inputs, t, eps)
+        params = _on_mesh(shapes, sh.param_shardings(axes, shapes, rules, mesh))
+        if arch.family == "diffusion":
+            return op_analysis.analyze(steps_mod.make_denoise_step(arch), params, inputs)
+        if shape.kind == "prefill":
+            return op_analysis.analyze(steps_mod.make_prefill_step(arch, shard=shard), params,
+                                       inputs)
+        cache = LM(arch, shard=shard).init_cache(batch, shape.seq_len, device="meta")
+        return op_analysis.analyze(steps_mod.make_decode_step(arch, shard=shard), params, cache,
+                                   inputs)
 
 
 def count_step(arch: ArchConfig, shape: ShapeCell, *, variant: str = "",
@@ -213,13 +203,23 @@ _TOTALS = ("flops", "hbm_bytes", "wire_bytes", "argument_bytes", "output_bytes",
            "alias_bytes", "temp_bytes", "peak_bytes")
 
 
+def _coll_key(i: int, r: dict) -> tuple:
+    return ("coll", i, r["op"], tuple(r["ranks"]), r["bandwidth"])
+
+
 def _numbers(res: dict) -> dict:
-    """The counts of an analysis, flattened: the totals, the FLOPs by dtype
-    and each op's calls, FLOPs and bytes."""
+    """The counts of an analysis, flattened: the totals, the FLOPs by dtype,
+    each op's calls, FLOPs and bytes, and each collective's bytes (keyed by
+    its place, op and group: another sequence of collectives is another
+    set of keys)."""
     out = {k: res[k] for k in _TOTALS}
     out.update({("flops_by_dtype", dt): f for dt, f in res["flops_by_dtype"].items()})
     out.update({("by_op", op, i): v for op, row in res["by_op"].items()
                 for i, v in enumerate(row)})
+    for i, r in enumerate(res["collectives"]):
+        out.update({_coll_key(i, r) + (f,): r[f] for f in ("result_bytes", "wire_bytes")})
+    out.update({("coll_by_op", op, f): v for op, d in res["coll_by_op"].items()
+                for f, v in d.items()})
     return out
 
 
@@ -228,8 +228,7 @@ def extrapolate(counts: list[dict], lengths: list[int], target: int) -> dict | N
     count is exactly affine in the length (f(3L) - f(2L) == f(2L) - f(L));
     else None."""
     nums = [_numbers(c) for c in counts]
-    if any(n.keys() != nums[0].keys() or c["collectives"] or c["kernels"]
-           for n, c in zip(nums, counts)):
+    if any(n.keys() != nums[0].keys() or c["kernels"] for n, c in zip(nums, counts)):
         return None
     slope = {}
     for k in nums[0]:
@@ -244,22 +243,28 @@ def extrapolate(counts: list[dict], lengths: list[int], target: int) -> dict | N
     res["flops_by_dtype"] = {k[1]: v for k, v in at.items() if k[0] == "flops_by_dtype"}
     res["by_op"] = {op: [at["by_op", op, i] for i in range(len(row))]
                     for op, row in counts[0]["by_op"].items()}
+    res["collectives"] = [dict(r, **{f: at[_coll_key(i, r) + (f,)]
+                                     for f in ("result_bytes", "wire_bytes")})
+                          for i, r in enumerate(counts[0]["collectives"])]
+    res["coll_by_op"] = {op: {f: at["coll_by_op", op, f] for f in d}
+                         for op, d in counts[0]["coll_by_op"].items()}
     return res
 
 
 def count_cell(arch: ArchConfig, shape: ShapeCell, *, variant: str = "",
-               batch: int | None = None) -> tuple[dict, list | None]:
-    """(analysis, the lengths it was extrapolated from or None)."""
+               batch: int | None = None, count=None) -> tuple[dict, list | None]:
+    """(analysis, the lengths it was extrapolated from or None). ``count``:
+    ``fn(arch, shape) -> analysis`` (default: the one-card ``count_step``)."""
+    count = count or functools.partial(count_step, variant=variant, batch=batch)
     long = (arch.family in ("ssm", "hybrid") and shape.kind in ("prefill", "train")
             and shape.seq_len > 3 * EXTRAPOLATE_LEN and shape.seq_len % EXTRAPOLATE_LEN == 0)
     if long:
         lengths = [EXTRAPOLATE_LEN * i for i in (1, 2, 3)]
-        counts = [count_step(arch, dataclasses.replace(shape, seq_len=n), variant=variant,
-                             batch=batch) for n in lengths]
+        counts = [count(arch, dataclasses.replace(shape, seq_len=n)) for n in lengths]
         res = extrapolate(counts, lengths, shape.seq_len)
         if res is not None:
             return res, lengths
-    return count_step(arch, shape, variant=variant, batch=batch), None
+    return count(arch, shape), None
 
 
 def _per_device(mesh, lays, shapes) -> int:
@@ -297,10 +302,12 @@ def layout_record(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, variant: s
 
 
 def run_cell(arch: str | ArchConfig, shape_name: str, *, mesh: str = "16x16",
-             variant: str = "", batch: int | None = None, seq: int | None = None) -> dict:
+             variant: str = "", batch: int | None = None, seq: int | None = None,
+             program: bool = True) -> dict:
     """The record of one cell on ``mesh`` ("1": one H100; "16x16" /
     "2x16x16": the production meshes), at the cell's global batch or
-    ``batch``, and its sequence length or ``seq``."""
+    ``batch``, and its sequence length or ``seq``. ``program=False``: on a
+    production mesh, the layouts' bytes alone (status ``"layout"``)."""
     arch = configs.get(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape_name]
     if seq:
@@ -329,19 +336,28 @@ def run_cell(arch: str | ArchConfig, shape_name: str, *, mesh: str = "16x16",
     t0 = time.monotonic()
     if not one_card:
         rules = sh.make_rules(arch, multi_pod=mesh == "2x16x16")
-        rec["memory"] = layout_record(arch, shape, prod_mesh, rules, variant=variant, batch=b)
-        rec["fits"] = rec["memory"]["state_bytes_per_device"] <= roofline.HBM_BYTES
-        rec.update(cost=None, collectives=None, roofline=None, model_flops_global=mf,
-                   status="layout", reason=NO_PROGRAM)
+        layout = layout_record(arch, shape, prod_mesh, rules, variant=variant, batch=b)
         rec["layout_s"] = round(time.monotonic() - t0, 2)
-        return rec
-    res, lengths = count_cell(arch, shape, variant=variant, batch=b)
+        if not program or (variant == "int8" and arch.family == "diffusion"):
+            rec["memory"] = layout
+            rec["fits"] = layout["state_bytes_per_device"] <= roofline.HBM_BYTES
+            rec.update(cost=None, collectives=None, roofline=None, model_flops_global=mf,
+                       status="layout", reason=NO_PROGRAM if program else LAYOUT_ONLY)
+            return rec
+        t0 = time.monotonic()
+        with fake_mesh(prod_mesh) as dmesh:
+            res, lengths = count_cell(arch, shape, count=functools.partial(
+                count_sharded, mesh=dmesh, rules=rules, batch=b))
+    else:
+        res, lengths = count_cell(arch, shape, variant=variant, batch=b)
     rec["analyze_s"] = round(time.monotonic() - t0, 2)
     if lengths:
         rec["extrapolated_from"] = lengths
     rec["memory"] = {f"{k}_per_device": int(res[k]) for k in
                      ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
                       "peak_bytes")}
+    if not one_card:
+        rec["layout"] = layout
     rec["fits"] = res["peak_bytes"] <= roofline.HBM_BYTES
     rec["cost"] = {
         "flops_per_device": float(res["flops"]),
@@ -359,7 +375,7 @@ def run_cell(arch: str | ArchConfig, shape_name: str, *, mesh: str = "16x16",
     }
     rec["roofline"] = roofline.roofline_terms(
         float(res["flops"]), float(res["hbm_bytes"]), float(res["wire_bytes"]),
-        model_flops_global=mf, n_chips=1, flops_by_dtype=res["flops_by_dtype"],
+        model_flops_global=mf, n_chips=n_chips, flops_by_dtype=res["flops_by_dtype"],
         collectives=res["collectives"])
     rec["status"] = "ok"
     return rec
@@ -375,6 +391,8 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--variant", default="", choices=["", "int8"])
     ap.add_argument("--batch", type=int, default=None, help="the global batch (default: the cell's)")
+    ap.add_argument("--layouts-only", action="store_true",
+                    help="production meshes: the layouts' bytes, not the sharded step")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -399,7 +417,7 @@ def main(argv=None):
         tag = f"{arch_name}_{shape_name}_{mesh}{suffix}"
         try:
             rec = run_cell(arch_name, shape_name, mesh=mesh, variant=args.variant,
-                           batch=args.batch)
+                           batch=args.batch, program=not args.layouts_only)
         except Exception as e:  # a failing cell is a bug: record it loudly
             rec = {
                 "arch": arch_name,

@@ -4,11 +4,10 @@ Mirror of ``src/repro/launch/mesh.py``. The reference's production mesh is
 a ``jax.make_mesh`` over the dry run's 256 or 512 forced host devices. The
 port's production mesh is an :class:`AbstractMesh`: the axis names and
 sizes that ``distributed/sharding.py:spec_for`` reads, with no devices
-behind them, which is all the layouts need. (A ``DeviceMesh`` of 256 ranks
-can exist in one process, over the ``fake`` backend of
-``torch.testing._internal.distributed.fake_pg``: ``init_process_group("fake",
-store=FakeStore(), rank=0, world_size=256)``, then ``init_device_mesh("cpu",
-(16, 16))``; nothing needs one until a step runs over DTensors.)
+behind them, which is all the layouts need. :func:`fake_mesh` makes it a
+``DeviceMesh`` of 256 or 512 ranks in one process, over the ``fake``
+backend of ``torch.testing._internal.distributed.fake_pg`` (collectives
+that move nothing), for the dry run's step over DTensors.
 ``make_test_mesh`` is a real ``torch.distributed.device_mesh.DeviceMesh``
 over the ranks of the current process group.
 
@@ -21,10 +20,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..kernels.common import resolve_device
 
@@ -71,5 +71,24 @@ def local_group(device=None):
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
     try:
         yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_mesh(mesh: AbstractMesh):
+    """A ``DeviceMesh`` of ``mesh``'s axes over a process group of that many
+    ranks on the ``fake`` backend, this process its rank 0, for the block;
+    the group is destroyed on leaving it. Refuses to start while another
+    group is up: the fake one would stand in for it."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a {dist.get_backend()} process group is up: the fake "
+                           f"{'x'.join(map(str, mesh.axis_sizes))} group starts only alone")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh.axis_sizes))
+    try:
+        yield init_device_mesh("cpu", mesh.axis_sizes, mesh_dim_names=mesh.axis_names)
     finally:
         dist.destroy_process_group()

@@ -42,7 +42,7 @@ ops.
     only: whether their ``c10d`` op reaches a dispatch mode depends on the
     backend and the version, so the wrapper counts the call and the mode
     skips the ``c10d`` ops inside it. A record holds the op, the
-    group size, the result bytes, the wire bytes (``roofline.py``'s ring
+    group size and its ranks, the result bytes, the wire bytes (``roofline.py``'s ring
     factors) and the bandwidth of the link the group crosses.
   * ``kernels``: the hand-written kernels, which the dispatch cannot see
     (``int8_matmul`` reaches its kernel through ``ctypes``). A wrapper
@@ -60,7 +60,8 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
-from torch._subclasses.fake_tensor import FakeTensorMode
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
@@ -100,7 +101,9 @@ def nbytes(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensor leaves of ``tree``, a DTensor as the block this rank holds."""
+    return [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
 
 
 def _int_mm_flop(a, b, **kwargs) -> int:
@@ -143,6 +146,10 @@ class _Counter(TorchDispatchMode):
         self.kernels: dict[str, dict] = {}
         self.by_op: dict[str, list] = {}  # op -> [calls, flops, bytes]
         self.in_dist_call = False  # a wrapped torch.distributed call counts itself
+        # a step over DTensors: DTensor runs each op on the rank's blocks (which
+        # this mode counts) after propagating its layouts on fake tensors of
+        # the whole shapes (which it does not)
+        self.per_rank = False
         self.live = self.peak = 0
         self._storages: dict[int, tuple[weakref.ref, int]] = {}
 
@@ -173,7 +180,7 @@ class _Counter(TorchDispatchMode):
     def add_collective(self, op: str, result_bytes: int, ranks: list[int]) -> None:
         n = len(ranks)
         self.collectives.append({
-            "op": op, "result_bytes": result_bytes, "group_size": n,
+            "op": op, "result_bytes": result_bytes, "group_size": n, "ranks": list(ranks),
             "wire_bytes": result_bytes * _wire_factor(op, n),
             "bandwidth": ranks_bandwidth(ranks)})
 
@@ -188,10 +195,14 @@ class _Counter(TorchDispatchMode):
 
     # -------------------------------------------------------------- dispatch
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor dispatches the blocks' ops, which come back here
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if self.in_dist_call and func.namespace == "c10d":
             return out
+        if self.per_rank and any(isinstance(t, FakeTensor) for t in tree_leaves((args, out))):
+            return out  # DTensor's layout propagation
         packet = func.overloadpacket
         row = self.by_op.setdefault(packet.__name__, [0, 0.0, 0.0])
         row[0] += 1
@@ -290,8 +301,12 @@ def analyze(fn: Callable, *args, **kwargs) -> dict[str, Any]:
     ``temp_bytes``, ``peak_bytes``), the collective records, the kernels'
     recorded work and ``out``, the step's result. The arguments may be
     fake tensors (call it inside the :func:`fake_mode` that made them) or
-    real ones."""
+    real ones. A step over DTensors is counted for one rank: the ops on its
+    blocks, its collectives, its blocks' bytes (the arguments' blocks on
+    ``meta``, with no ``FakeTensorMode``: DTensor propagates layouts on
+    fake tensors of its own, which the count leaves out)."""
     counter = _Counter()
+    counter.per_rank = any(isinstance(t, DTensor) for t in tree_leaves((args, kwargs)))
     args_bytes = sum(counter.track(t) for t in _tensors((args, kwargs)))
     with counter, _counting_dist_calls(counter), common.recording(counter.record_kernel):
         out = fn(*args, **kwargs)

@@ -23,10 +23,20 @@ reshape (microbatch i holds rows i, i + a, ...), whose gradients add up in
 ``arch.accum_dtype`` and are divided by their count.
 
 ``param_axes`` gives the logical-axes tree of a config's params and their
-shapes without allocating them, for ``distributed/sharding.py``. The
-reference's ``shard=`` (a sharding constraint inside the jitted step) has
-no counterpart: PyTorch has no compiler that partitions a step from layout
-hints, and a step over DTensors is a design of its own (ROADMAP.md).
+shapes without allocating them, for ``distributed/sharding.py``.
+
+``shard=`` (the LM steps; the diffusion branch ignores it, as the
+reference's does) is the reference's sharding constraint: a
+``distributed/sharding.py:make_shard_fn`` over a ``DeviceMesh`` lays the
+tensors at the reference's sites out on the mesh (the embedded tokens and
+the MoE's groups on 'batch', the experts' buffer on 'expert', each
+microbatch on 'batch', the gradient carry in the params' layouts). The
+step then runs on DTensors: its inputs laid out by the caller
+(``param_shardings``, ``cache_shardings_dict``, ...), DTensor's sharding
+propagation partitions every op, and a tensor the step makes itself is
+taken as replicated (``sharding.replicating``). A constraint moves data and
+never changes a value: the sharded step returns what the unsharded one
+does, up to the order of the sums that cross ranks.
 """
 from __future__ import annotations
 
@@ -34,10 +44,14 @@ from typing import Callable
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
+
 from .. import tree as tr
 from ..configs.base import ArchConfig, torch_dtype
 from ..core import diffusion
 from ..data.synthetic import generator
+from ..distributed import sharding
 from ..kernels.common import resolve_device
 from ..models.lm import LM
 from ..nn import core as nncore
@@ -82,12 +96,30 @@ def make_dit_model(arch: ArchConfig) -> dit_mod.DiTCfg:
     )
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE in float32. logits (B, S, V), labels (B, S) integer."""
+def _ce_rows(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The float32 CE of each (row, position)."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    return logz - gold
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE in float32. logits (B, S, V), labels (B, S) integer.
+
+    DTensor logits: the vocab is gathered whole and each rank takes the CE
+    of its own rows under ``local_map`` (DTensor's gather of the gold logit
+    splits the vocab into a masked partial sum, which it then reduces
+    against a mask of the gather's shape, not the row's)."""
+    if not isinstance(logits, DTensor):
+        return torch.mean(_ce_rows(logits, labels))
+    vocab, mesh = logits.dim() - 1, logits.device_mesh
+    pl = [Replicate() if p.is_shard(vocab) or p.is_partial() else p for p in logits.placements]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    rows = local_map(_ce_rows, out_placements=pl, in_placements=(pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
+    return torch.mean(rows)
 
 
 class DiffusionTrainStep:
@@ -163,12 +195,18 @@ class LMTrainStep:
     {params, opt, rng}; metrics {loss (the CE alone), aux, grad_norm, lr}.
 
     ``batch_shards``: the devices the batch is split over; ``grad_accum``
-    is capped so that each microbatch still divides them."""
+    is capped so that each microbatch still divides them. ``shard``: the
+    reference's constraints (each microbatch on 'batch', the gradients
+    and their accumulation carry in the params' layouts, and the model's
+    own); the identity if None."""
 
-    def __init__(self, arch: ArchConfig, opt: AdamW, *, aux_weight: float = 0.01,
+    def __init__(self, arch: ArchConfig, opt: AdamW, *, shard=None, aux_weight: float = 0.01,
                  batch_shards: int = 1):
         self.arch, self.opt = arch, opt
-        self.model = LM(arch)
+        self.shard = shard
+        self.model = LM(arch, shard=shard)
+        # the params' logical axes, leaf for leaf: the layouts of the carry
+        self.p_axes = tr.leaves(param_axes(arch)[0]) if shard is not None else None
         self.aux_weight = aux_weight
         self.batch_shards = max(batch_shards, 1)
         self.nf = arch.n_frontend_tokens if arch.frontend == "vision" else 0
@@ -200,7 +238,15 @@ class LMTrainStep:
         with torch.enable_grad():
             loss, ce, aux = self.loss_for(tr.unflatten_like(params, leaves), mb)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return ce.detach(), aux.detach(), list(grads)
+        return ce.detach(), aux.detach(), self._in_param_layouts(list(grads))
+
+    def _in_param_layouts(self, leaves: list) -> list:
+        """The reference's ``constrain_grads``: each leaf laid out as its
+        param by ``shard`` (a gradient's pending sum over the batch is
+        reduced there, once); unchanged without ``shard``."""
+        if self.shard is None:
+            return leaves
+        return [self.shard(a, ax) for a, ax in zip(leaves, self.p_axes)]
 
     def loss_and_grads(self, params, batch):
         """(ce, aux, grads) of the batch, over its microbatches."""
@@ -210,8 +256,11 @@ class LMTrainStep:
             return ce, aux, tr.unflatten_like(params, grads)
         # microbatch i: rows i, i + accum, ... (dim 1 of a (B / a, a, ...) reshape)
         mbs = {k: v.reshape((v.shape[0] // accum, accum) + v.shape[1:]) for k, v in batch.items()}
-        acc = [torch.zeros(p.shape, dtype=self.acc_dtype, device=p.device)
-               for p in tr.leaves(params)]
+        if self.shard is not None:
+            mbs = {k: self.shard(v, ("batch",) + (None,) * (v.dim() - 1))
+                   for k, v in mbs.items()}
+        acc = self._in_param_layouts([torch.zeros_like(p, dtype=self.acc_dtype)
+                                      for p in tr.leaves(params)])
         ce_acc = aux_acc = torch.zeros((), dtype=torch.float32, device=acc[0].device)
         for i in range(accum):
             ce, aux, grads = self._grads(params, {k: v[:, i] for k, v in mbs.items()})
@@ -224,29 +273,33 @@ class LMTrainStep:
         return ce_acc / accum, aux_acc / accum, tr.unflatten_like(params, acc)
 
     def __call__(self, state, batch):
-        ce, aux, grads = self.loss_and_grads(state["params"], batch)
-        new_params, new_opt, stats = self.opt.update(grads, state["opt"], state["params"])
+        with sharding.replicating(self.shard):
+            ce, aux, grads = self.loss_and_grads(state["params"], batch)
+            new_params, new_opt, stats = self.opt.update(grads, state["opt"], state["params"])
         return ({"params": new_params, "opt": new_opt, "rng": state["rng"]},
                 {"loss": ce, "aux": aux, **stats})
 
 
-def make_train_step(arch: ArchConfig, opt: AdamW, *, aux_weight: float = 0.01,
+def make_train_step(arch: ArchConfig, opt: AdamW, *, shard=None, aux_weight: float = 0.01,
                     batch_shards: int = 1) -> DiffusionTrainStep | LMTrainStep:
-    """(state, batch) -> (state, metrics); state = {params, opt, rng}."""
+    """(state, batch) -> (state, metrics); state = {params, opt, rng}.
+    ``shard``: the LM step's sharding constraints (``LMTrainStep``); the
+    diffusion step ignores it, as the reference's does."""
     if arch.family == "diffusion":
         return DiffusionTrainStep(arch, opt)
-    return LMTrainStep(arch, opt, aux_weight=aux_weight, batch_shards=batch_shards)
+    return LMTrainStep(arch, opt, shard=shard, aux_weight=aux_weight, batch_shards=batch_shards)
 
 
-def make_prefill_step(arch: ArchConfig) -> Callable:
+def make_prefill_step(arch: ArchConfig, *, shard=None) -> Callable:
     """``(params, batch) -> (last-position logits, cache)``: the prompt's
     forward, its k / v kept (cache length = prompt length). ``batch`` holds
     ``tokens`` (B, S), or ``embeds`` (B, S, D) for an audio arch, and for a
     vision arch optionally ``frontend_embeds`` (B, n_frontend_tokens, D);
     other keys are ignored. Serving records no autograd graph (the steps
     run under ``torch.no_grad``), so the recurrent layers take no
-    checkpoints."""
-    model = LM(arch)
+    checkpoints. ``shard``: as ``LM(shard=)``; the cache is then allocated
+    in its mesh layout (``cache_shardings_dict``)."""
+    model = LM(arch, shard=shard)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -255,13 +308,14 @@ def make_prefill_step(arch: ArchConfig) -> Callable:
     return prefill_step
 
 
-def make_decode_step(arch: ArchConfig) -> Callable:
+def make_decode_step(arch: ArchConfig, *, shard=None) -> Callable:
     """``(params, cache, batch) -> (logits, cache)``: one decode step at
     ``batch["pos"]`` (an int or a 0-d integer tensor) over ``tokens`` (B, 1),
     or ``embeds`` (B, 1, D) for an audio arch; other keys are ignored. The
     step is written into ``cache`` (k / v, or the recurrent states and the
-    ring), which is returned; no autograd graph is recorded."""
-    model = LM(arch)
+    ring), which is returned; no autograd graph is recorded. ``shard``: as
+    ``LM(shard=)``."""
+    model = LM(arch, shard=shard)
 
     @torch.no_grad()
     def decode_step(params, cache, batch):

@@ -11,12 +11,19 @@ Mirror of ``src/repro/launch/train.py`` (the DiT and the LM stack):
 It runs on the card unless ``device="cpu"`` (``--device cpu``) is given,
 and raises when asked for the card without one; nothing falls back.
 
+``mesh=`` / ``shard=`` (the reference's): the step is built with ``shard``
+(``launch/steps.py``); with a ``DeviceMesh`` the driver lays the state out
+by ``launch/dryrun.py:state_shardings`` and each batch by
+``batch_shardings`` under ``shard``'s rules, and checkpoints hold the
+whole values (one process writes them).
+
 Usage:  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
             --steps 100 --batch 8 --seq 128 [--smoke] [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import signal
 import statistics
@@ -24,15 +31,29 @@ import time
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from .. import configs
+from .. import tree as tr
 from ..checkpoint.manager import CheckpointManager
 from ..data.synthetic import DataCfg, batch_for
+from ..distributed import sharding
 from ..kernels.common import resolve_device
+from . import dryrun
 from . import steps as steps_mod
 
 #: Default work directory: the git-ignored ``experiments/`` of the checkout.
 DEFAULT_WORKDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..",
                                "experiments", "repro_torch_train")
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _laid_out(tree, lays):
+    return tr.unflatten_like(tree, [sharding.layout(a, lay) for a, lay in
+                                    zip(tr.leaves(tree), tr.leaves(lays))])
 
 
 class TrainDriver:
@@ -49,6 +70,8 @@ class TrainDriver:
         straggler_factor: float = 3.0,
         seed: int = 0,
         device=None,
+        mesh=None,
+        shard=None,
     ):
         self.arch = arch
         self.device = resolve_device(device)
@@ -60,7 +83,13 @@ class TrainDriver:
         self.opt = steps_mod.make_optimizer(
             arch, base_lr=base_lr, warmup=steps_mod.driver_warmup(total_steps), total=total_steps
         )
-        self.train_step = steps_mod.make_train_step(arch, self.opt)
+        self.mesh = mesh
+        self.rules = getattr(shard, "rules", None) or sharding.make_rules(arch)
+        shards = (1 if mesh is None else
+                  math.prod(sharding.mesh_axes(mesh)[a]
+                            for a in sharding.batch_axes(mesh, self.rules)))
+        self.train_step = steps_mod.make_train_step(arch, self.opt, shard=shard,
+                                                    batch_shards=shards)
         self.seed = seed
         self._preempted = False
         self.straggler_events: list[int] = []
@@ -84,7 +113,20 @@ class TrainDriver:
             start = int(state["opt"]["step"])
         else:
             start = 0
+        if self.mesh is not None:
+            lays = dryrun.state_shardings(self.arch, self.mesh, self.rules, self.opt)
+            state = {"params": _laid_out(state["params"], lays["params"]),
+                     "opt": _laid_out(state["opt"], lays["opt"]), "rng": state["rng"]}
         return state, start
+
+    def _batch(self, step: int) -> dict:
+        batch = batch_for(self.arch, self.data_cfg, step, device=self.device)
+        if self.mesh is None:
+            return batch
+        b, s = next(iter(batch.values())).shape[:2]
+        lays, _ = dryrun.batch_shardings(self.arch, configs.ShapeCell("train", "train", s, b),
+                                         self.mesh, self.rules)
+        return {k: sharding.layout(v, lays[k]) for k, v in batch.items()}
 
     # ------------------------------------------------------------------ run
     def run(self, *, steps: int | None = None):
@@ -95,11 +137,10 @@ class TrainDriver:
         step = start
         while step < start + n and step < self.total_steps:
             t0 = time.monotonic()
-            batch = batch_for(self.arch, self.data_cfg, step, device=self.device)
-            state, metrics = self.train_step(state, batch)
+            state, metrics = self.train_step(state, self._batch(step))
             # one transfer reads the three (and waits for the step)
-            loss, gnorm, lr = torch.stack([metrics["loss"], metrics["grad_norm"],
-                                           metrics["lr"]]).tolist()
+            loss, gnorm, lr = torch.stack([_whole(metrics[k]) for k in
+                                           ("loss", "grad_norm", "lr")]).tolist()
             dt = time.monotonic() - t0
             # ---- straggler watchdog ----
             if len(durations) >= 5:

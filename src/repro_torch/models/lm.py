@@ -32,6 +32,14 @@ leading dims as the reference's ``_stack``):
   prefill(params, ..., )                          -> (last logits, cache)
   decode_step(params, cache, tokens/embeds, pos)  -> (logits, cache)
 
+``LM(cfg, shard=)`` takes the reference's sharding constraint (the
+identity by default): ``forward`` lays the embedded tokens out on
+('batch', None, None) and every MoE layer takes it (``nn/moe.py``). With a
+``distributed/sharding.py:ShardFn`` the params and inputs are DTensors:
+each method runs under ``sharding.replicating`` (a tensor the model makes
+itself is replicated), and ``init_cache`` allocates each cache tensor in
+its layout of ``cache_shardings_dict``, block by block.
+
 ``decode_step`` writes the step into ``cache`` in place and returns it:
 the stack's k / v (``nn/attention.py``), the recurrent states, and the
 ring's k / v and positions at slot ``pos % W``. In the stack a ``pos`` at
@@ -47,9 +55,11 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, torch_dtype
+from ..distributed import sharding
 from ..kernels.common import resolve_device
 from ..nn import attention as attn_mod
 from ..nn import core, embedding, mlp, moe, ssm, xlstm
@@ -101,10 +111,11 @@ def _pad_vocab(v: int) -> int:
 
 
 class LM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, *, shard=None):
         if cfg.family not in STACK + RECURRENT:
             raise ValueError(f"family {cfg.family} not built by LM")
         self.cfg = cfg
+        self.shard = shard or sharding.no_shard
         self.vocab_padded = _pad_vocab(cfg.vocab_size) if cfg.vocab_size else 0
         self.pdtype = torch_dtype(cfg.param_dtype)
         self.adtype = torch_dtype(cfg.activation_dtype)
@@ -221,7 +232,7 @@ class LM:
         x = x + a
         h = _norm(cfg, bp["ln2"], x)
         if self.moe_cfg:
-            f, aux = moe.apply(bp["moe"], self.moe_cfg, h)
+            f, aux = moe.apply(bp["moe"], self.moe_cfg, h, shard=self.shard)
         else:
             f, aux = mlp.apply(bp["mlp"], self.mlp_cfg, h), None
         return x + f, nc, aux
@@ -315,8 +326,13 @@ class LM:
         """Full-sequence forward (train / prefill math). -> (logits, aux);
         aux is the sum of the MoE layers' load-balancing losses (0 for a
         dense FFN and the recurrent families)."""
+        with sharding.replicating(self.shard):
+            return self._forward(params, tokens, embeds, frontend_embeds)
+
+    def _forward(self, params, tokens, embeds, frontend_embeds):
         cfg = self.cfg
         x = self._embed_in(params, tokens, embeds, frontend_embeds)
+        x = self.shard(x, ("batch", None, None))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
@@ -343,42 +359,54 @@ class LM:
         states, and a ring of ``W = min(attn_window, cache_len)`` slots for
         each super-block's shared attention (k / v in ``dtype``, ``a_p`` the
         position a slot holds, -1 when empty, one row a super-block shared
-        by the batch)."""
-        cfg = self.cfg
+        by the batch). Where ``shard`` lays tensors out on a mesh, each is a
+        DTensor allocated in its layout of
+        ``distributed/sharding.py:cache_shardings_dict``."""
         dev = resolve_device(device)
-        dt = dtype or self.adtype
-        hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
-        f32 = dict(dtype=torch.float32, device=dev)
+        specs = self._cache_specs(batch, cache_len, dtype or self.adtype)
+        mesh = getattr(self.shard, "mesh", None)
+        if mesh is None:
+            return {k: torch.full(shape, fill, dtype=dt, device=dev)
+                    for k, (shape, fill, dt) in specs.items()}
+        lays = sharding.cache_shardings_dict(
+            self.cfg, mesh, self.shard.rules,
+            {k: torch.empty(shape, device="meta") for k, (shape, _, _) in specs.items()})
+        return {k: sharding.full(shape, fill, dt, lays[k], dev)
+                for k, (shape, fill, dt) in specs.items()}
+
+    def _cache_specs(self, batch: int, cache_len: int, dt) -> dict:
+        """(shape, fill, dtype) of each tensor of the cache."""
+        cfg = self.cfg
+        hd, kvh, f32 = cfg.resolved_head_dim, cfg.n_kv_heads, torch.float32
         if cfg.family == "ssm":
             xc, ns, ps = self.xl_cfg, cfg.n_super, cfg.per_super
             return {
-                "m_C": torch.zeros((ns, ps, batch, xc.n_heads, xc.head_dim, xc.head_dim), **f32),
-                "m_n": torch.zeros((ns, ps, batch, xc.n_heads, xc.head_dim), **f32),
-                "m_m": torch.full((ns, ps, batch, xc.n_heads), -1e30, **f32),
-                "s_c": torch.zeros((ns, batch, cfg.d_model), **f32),
-                "s_n": torch.zeros((ns, batch, cfg.d_model), **f32),
-                "s_h": torch.zeros((ns, batch, cfg.d_model), **f32),
-                "s_m": torch.full((ns, batch, xc.n_heads), -1e30, **f32),
+                "m_C": ((ns, ps, batch, xc.n_heads, xc.head_dim, xc.head_dim), 0.0, f32),
+                "m_n": ((ns, ps, batch, xc.n_heads, xc.head_dim), 0.0, f32),
+                "m_m": ((ns, ps, batch, xc.n_heads), -1e30, f32),
+                "s_c": ((ns, batch, cfg.d_model), 0.0, f32),
+                "s_n": ((ns, batch, cfg.d_model), 0.0, f32),
+                "s_h": ((ns, batch, cfg.d_model), 0.0, f32),
+                "s_m": ((ns, batch, xc.n_heads), -1e30, f32),
             }
         if cfg.family == "hybrid":
             mc, ns, ps = self.mamba_cfg, cfg.n_super, cfg.per_super
             w = min(cfg.attn_window or cache_len, cache_len)
             conv_dim = mc.d_inner + 2 * mc.n_groups * mc.d_state
-            cache = {
-                "m_h": torch.zeros((ns, ps, batch, mc.n_heads, mc.head_dim, mc.d_state), **f32),
-                "m_conv": torch.zeros((ns, ps, batch, mc.conv_width - 1, conv_dim), **f32),
-                "a_k": torch.zeros((ns, batch, w, kvh, hd), dtype=dt, device=dev),
-                "a_v": torch.zeros((ns, batch, w, kvh, hd), dtype=dt, device=dev),
-                "a_p": torch.full((ns, w), -1, dtype=torch.int32, device=dev),
+            specs = {
+                "m_h": ((ns, ps, batch, mc.n_heads, mc.head_dim, mc.d_state), 0.0, f32),
+                "m_conv": ((ns, ps, batch, mc.conv_width - 1, conv_dim), 0.0, f32),
+                "a_k": ((ns, batch, w, kvh, hd), 0.0, dt),
+                "a_v": ((ns, batch, w, kvh, hd), 0.0, dt),
+                "a_p": ((ns, w), -1, torch.int32),
             }
             if cfg.n_trailing:
                 nt = cfg.n_trailing
-                cache["t_h"] = torch.zeros((nt, batch, mc.n_heads, mc.head_dim, mc.d_state), **f32)
-                cache["t_conv"] = torch.zeros((nt, batch, mc.conv_width - 1, conv_dim), **f32)
-            return cache
+                specs["t_h"] = ((nt, batch, mc.n_heads, mc.head_dim, mc.d_state), 0.0, f32)
+                specs["t_conv"] = ((nt, batch, mc.conv_width - 1, conv_dim), 0.0, f32)
+            return specs
         shape = (cfg.n_layers, batch, cache_len, kvh, hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        return {"k": (shape, 0.0, dt), "v": (shape, 0.0, dt)}
 
     # ----------------------------------------------------------- decode step
     def decode_step(self, params, cache: dict, *, tokens=None, embeds=None, pos=None):
@@ -387,6 +415,10 @@ class LM:
         returns (logits, cache)."""
         if pos is None:
             raise TypeError("decode_step needs pos")
+        with sharding.replicating(self.shard):
+            return self._decode_step(params, cache, tokens, embeds, pos)
+
+    def _decode_step(self, params, cache, tokens, embeds, pos):
         cfg = self.cfg
         x = self._embed_in(params, tokens, embeds, None)
         if cfg.family == "ssm":
@@ -408,6 +440,10 @@ class LM:
         The cache length equals the prompt length (callers append decode
         budget by padding the cache before stepping, or re-init a longer
         cache; the hybrid's ring is ``min(attn_window, prompt)`` wide)."""
+        with sharding.replicating(self.shard):
+            return self._prefill(params, tokens, embeds, frontend_embeds)
+
+    def _prefill(self, params, tokens, embeds, frontend_embeds):
         cfg = self.cfg
         x = self._embed_in(params, tokens, embeds, frontend_embeds)
         b, s = x.shape[:2]
@@ -436,9 +472,9 @@ def _ring_attend(attn_params, acfg, h, ak, av, ap, pos):
     position in [0, pos]. Returns the block's output."""
     b, s, _ = h.shape
     w, hd = ak.shape[1], acfg.head_dim
-    q = core.dense(attn_params["wq"], h).reshape(b, s, acfg.n_heads, hd)
-    k = core.dense(attn_params["wk"], h).reshape(b, s, acfg.n_kv_heads, hd)
-    v = core.dense(attn_params["wv"], h).reshape(b, s, acfg.n_kv_heads, hd)
+    q = sharding.unflatten(core.dense(attn_params["wq"], h), -1, (acfg.n_heads, hd))
+    k = sharding.unflatten(core.dense(attn_params["wk"], h), -1, (acfg.n_kv_heads, hd))
+    v = sharding.unflatten(core.dense(attn_params["wv"], h), -1, (acfg.n_kv_heads, hd))
     if acfg.qk_norm:
         q = attn_mod._headnorm(attn_params["q_norm"]["scale"], q)
         k = attn_mod._headnorm(attn_params["k_norm"]["scale"], k)
@@ -446,26 +482,26 @@ def _ring_attend(attn_params, acfg, h, ak, av, ap, pos):
     q = apply_rope(q, positions, theta=acfg.rope_theta)
     k = apply_rope(k, positions, theta=acfg.rope_theta)
     slots = torch.remainder(positions, w).to(torch.int64)
-    ak.index_copy_(1, slots, k.to(ak.dtype))
-    av.index_copy_(1, slots, v.to(av.dtype))
     ap.index_copy_(0, slots, positions.to(ap.dtype))
     mask = ((ap >= 0) & (ap <= pos))[None, None, None, None, :]  # (B,KV,G,Sq,W)
-    y = attn_mod._sdpa(q, ak.to(q.dtype), av.to(q.dtype), mask=mask, scale=1.0 / math.sqrt(hd))
+    y = attn_mod.write_attend(q, k, v, ak, av, slots, mask, 1.0 / math.sqrt(hd))
     return core.dense(attn_params["wo"], y.reshape(b, s, acfg.n_heads * hd))
 
 
 def _ring_from_full(k_full, v_full, w: int):
     """The full prefill k / v (B, S, KV, hd) in ring layout of width ``w``:
-    (k, v, positions), the last ``min(S, w)`` positions at slot ``p % w``."""
+    (k, v, positions), the last ``min(S, w)`` positions at slot ``p % w``:
+    a rotation of the last ``w`` positions, or positions 0..S-1 at slots
+    0..S-1 and the rest zero. Data movement only (``roll``, ``pad``), which
+    keeps a DTensor's layout."""
     s = k_full.shape[1]
     take = min(s, w)
     positions = torch.arange(s - take, s, dtype=torch.int32, device=k_full.device)
     slots = torch.remainder(positions, w).to(torch.int64)
-    shape = k_full.shape[:1] + (w,) + k_full.shape[2:]
-    nk = torch.zeros(shape, dtype=k_full.dtype, device=k_full.device)
-    nv = torch.zeros(shape, dtype=v_full.dtype, device=v_full.device)
-    nk.index_copy_(1, slots, k_full[:, -take:])
-    nv.index_copy_(1, slots, v_full[:, -take:])
+    if s >= w:
+        nk, nv = (torch.roll(a[:, -w:], (s - w) % w, 1) for a in (k_full, v_full))
+    else:
+        nk, nv = (F.pad(a, (0, 0, 0, 0, 0, w - s)) for a in (k_full, v_full))
     np_ = torch.full((w,), -1, dtype=torch.int32, device=k_full.device).index_copy_(
         0, slots, positions)
     return nk, nv, np_

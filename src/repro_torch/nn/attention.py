@@ -19,14 +19,24 @@ the given cache (``index_copy_`` at ``cache_pos``) and returns that cache,
 where the reference returns an updated copy; at a 32k-slot decode cache
 a copy a step would be the cache's size again. A caller must not read a
 cache after passing it in expecting the old contents.
+
+On DTensors (a step built with ``shard=``) the attention runs on each
+rank's (row, head) block under ``local_map`` (``_sdpa``), and so does a
+decode's cache write (``write_attend``), whose softmax runs over the
+ranks where the cache is split over its slots.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed import sharding
 from . import core
 from .rotary import apply_rope
 
@@ -71,7 +81,22 @@ def _headnorm(scale, x, eps=1e-6):
 
 def _sdpa(q, k, v, *, mask, scale):
     """q: (B,Sq,H,hd) k/v: (B,Sk,KV,hd). GQA via head grouping. ``mask``
-    broadcasts against (B, KV, G, Sq, Sk); None attends everywhere."""
+    broadcasts against (B, KV, G, Sq, Sk); None attends everywhere.
+
+    DTensors: each (row, kv-head group) attends on its own, so each rank
+    runs the plain attention on its block under ``local_map``: a mesh dim
+    that splits the batch (dim 0) or the heads (dim 2) of q, k and v alike
+    stays split, any other is gathered first. (DTensor's own rules fold the
+    split batch and head dims of the grouped einsums into strided splits,
+    whose redistribution plans cost seconds a shape to search.)"""
+    if isinstance(q, DTensor):
+        pl = [p if p in (Shard(0), Shard(2)) and k.placements[i] == p == v.placements[i]
+              else Replicate() for i, p in enumerate(q.placements)]
+        if isinstance(mask, DTensor):  # a ring's, replicated
+            mask = mask.full_tensor()
+        return local_map(functools.partial(_sdpa, mask=mask, scale=scale), out_placements=pl,
+                         in_placements=(pl, pl, pl), device_mesh=q.device_mesh,
+                         redistribute_inputs=True)(q, k, v)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -82,6 +107,68 @@ def _sdpa(q, k, v, *, mask, scale):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
     return out.reshape(b, sq, h, hd)
+
+
+def write_attend(q, k, v, ck, cv, slots, mask, scale):
+    """A decode step's cache write and attention: the new k / v (B, S, KV,
+    hd) written in place at ``slots`` (S,) of dim 1 of the cache ``ck`` /
+    ``cv`` (B, S_max, KV, hd), then q attends over the cache under
+    ``mask``, whose last dim runs over the S_max slots.
+
+    A DTensor cache: each rank writes and attends on its own block under
+    ``local_map`` (q, k and v laid out as the cache's batch and head
+    splits). Where the cache is split over its slots (the reference's
+    layout when the kv heads do not divide the 'model' axis), each rank
+    writes the new slots it holds (one new token a step) and the softmax
+    runs over the ranks: the global max and sum, then the sum of the
+    ranks' weighted values (all-reduces over that mesh dim), equal to the
+    whole softmax up to the order of its sums."""
+    if not isinstance(ck, DTensor):
+        ck.index_copy_(1, slots, k.to(ck.dtype))
+        cv.index_copy_(1, slots, v.to(cv.dtype))
+        return _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask, scale=scale)
+    mesh, cpl = ck.device_mesh, list(ck.placements)
+    qpl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cpl]
+    split = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    if len(split) > 1 or (split and k.shape[1] != 1):
+        raise NotImplementedError(f"a cache split over its slots by {cpl} takes one new token "
+                                  f"on one mesh dim, not {k.shape[1]} on {len(split)}")
+    if isinstance(mask, DTensor):  # made from the ring's replicated positions
+        mask = mask.full_tensor()
+    if isinstance(slots, DTensor):
+        slots = slots.full_tensor()
+    n = mesh.size(split[0]) if split else 1
+    lo = mesh.get_coordinate()[split[0]] * (ck.shape[1] // n) if split else 0
+
+    def body(q, k, v, ck, cv):
+        width = ck.shape[1]
+        local = mask[..., lo:lo + width]
+        if not split:
+            ck.index_copy_(1, slots, k.to(ck.dtype))
+            cv.index_copy_(1, slots, v.to(cv.dtype))
+            return _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=local, scale=scale)
+        at = slots - lo
+        inside = ((at >= 0) & (at < width))[None, :, None, None]
+        at = at.clamp(0, width - 1)
+        for c, new in ((ck, k), (cv, v)):  # the slot's old value where it is not this rank's
+            c.index_copy_(1, at, torch.where(inside, new.to(c.dtype), c.index_select(1, at)))
+        group = mesh.get_group(split[0])
+        b, sq, h, hd = q.shape
+        kvh = ck.shape[2]
+        logits = torch.einsum("bqkgh,bskh->bkgqs", q.reshape(b, sq, kvh, h // kvh, hd),
+                              ck.to(q.dtype)).to(torch.float32) * scale
+        logits = logits.masked_fill_(~local, torch.finfo(torch.float32).min)
+        top = torch.amax(logits, dim=-1, keepdim=True)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        e = torch.exp(logits - top)
+        total = torch.sum(e, dim=-1, keepdim=True)
+        dist.all_reduce(total, group=group)
+        out = torch.einsum("bkgqs,bskh->bqkgh", (e / total).to(cv.dtype), cv.to(q.dtype))
+        dist.all_reduce(out, group=group)
+        return out.reshape(b, sq, h, hd)
+
+    return local_map(body, out_placements=qpl, in_placements=(qpl, qpl, qpl, cpl, cpl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v, ck, cv)
 
 
 # query-chunk size above which the full (Sq, Sk) score matrix is never
@@ -103,7 +190,7 @@ def _sdpa_chunked(q, k, v, *, qpos, kpos, window, scale, chunk=CHUNK_Q):
     Equivalent math (softmax is per-query-row); one chunk's scores are
     live at a time."""
     b, sq, h, hd = q.shape
-    out = torch.empty((b, sq, h, hd), dtype=v.dtype, device=q.device)
+    out = torch.empty_like(q, dtype=v.dtype)
     for lo in range(0, sq, chunk):
         mask = _causal_mask(qpos[lo:lo + chunk], kpos, window)
         out[:, lo:lo + chunk] = _sdpa(q[:, lo:lo + chunk], k, v, mask=mask[None, None, None],
@@ -122,9 +209,9 @@ def apply(params: dict, cfg: AttentionCfg, x: torch.Tensor, *, positions: torch.
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = core.dense(params["wq"], x).reshape(b, s, h, hd)
-    k = core.dense(params["wk"], x).reshape(b, s, kvh, hd)
-    v = core.dense(params["wv"], x).reshape(b, s, kvh, hd)
+    q = sharding.unflatten(core.dense(params["wq"], x), -1, (h, hd))
+    k = sharding.unflatten(core.dense(params["wk"], x), -1, (kvh, hd))
+    v = sharding.unflatten(core.dense(params["wv"], x), -1, (kvh, hd))
     if cfg.qk_norm:
         q = _headnorm(params["q_norm"]["scale"], q)
         k = _headnorm(params["k_norm"]["scale"], k)
@@ -160,12 +247,9 @@ def apply(params: dict, cfg: AttentionCfg, x: torch.Tensor, *, positions: torch.
                 raise ValueError(f"cache_pos {int(pos0)} + {s} new positions past the cache "
                                  f"length {s_max}")
         qpos = torch.arange(s, dtype=torch.int32, device=x.device) + pos0
-        slots = qpos.to(torch.int64)
-        ck.index_copy_(1, slots, k.to(ck.dtype))
-        cv.index_copy_(1, slots, v.to(cv.dtype))
         kpos = torch.arange(s_max, dtype=torch.int32, device=x.device)
         mask = _causal_mask(qpos, kpos, cfg.window)[None, None, None]  # (1,1,1,Sq,Sk)
-        y = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), mask=mask, scale=scale)
+        y = write_attend(q, k, v, ck, cv, qpos.to(torch.int64), mask, scale)
         new_cache = {"k": ck, "v": cv}
 
     y = y.reshape(b, s, h * hd)

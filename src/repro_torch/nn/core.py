@@ -23,6 +23,8 @@ from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..tree import map_tree
@@ -133,6 +135,16 @@ ROW_BLOCK = 16
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     w = val(params["w"]).to(x.dtype)
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        y = matmul_split(x, w)
+    else:
+        y = _matmul(x, w)
+    if "b" in params:
+        y = y + val(params["b"]).to(y.dtype)
+    return y
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() == 2:
         # A BLAS picks its algorithm, and so its summation order, by the
         # shape: one row takes a matrix-vector path on the CPU and on the
@@ -143,12 +155,56 @@ def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
         # whatever number of rows it came with.
         m = x.shape[0]
         blocks = F.pad(x, (0, 0, 0, -m % ROW_BLOCK)).split(ROW_BLOCK)
-        y = torch.cat([b @ w for b in blocks])[:m]
-    else:
-        y = x @ w
-    if "b" in params:
-        y = y + val(params["b"]).to(y.dtype)
-    return y
+        return torch.cat([b @ w for b in blocks])[:m]
+    return x @ w
+
+
+def matmul_split(x: torch.Tensor, w: torch.Tensor) -> DTensor:
+    """``_matmul`` of DTensors: each rank runs it on its blocks under
+    ``local_map``, with the layouts a tensor-parallel product takes on each
+    mesh dim: rows of x split (w gathered: an FSDP split), w split on its
+    columns (x gathered; the output split on them), or both split on the
+    contraction (the output a pending sum); a pending sum in x passes
+    through a replicated w. (DTensor's own rules may split a replicated
+    operand on any dim, a sequence included, which a later reshape then
+    cannot undo.) A plain operand is taken as replicated."""
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not isinstance(w, DTensor):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    last = x.dim() - 1
+    xp, wp, yp, gxp, gwp = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if a.is_partial() and b.is_shard():
+            a = Replicate()  # the pending sum reduced before a split product
+        if a.is_shard() and not a.is_shard(last) and b.is_shard():
+            b = Replicate()  # rows split: the weight gathered
+        if a.is_shard(last) and b.is_shard(1):
+            a = Replicate()
+        if a == Replicate() and b.is_shard(0):
+            a = Shard(last)  # the contraction split alike: a local slice of x
+        if a.is_shard(last) and b == Replicate():
+            b = Shard(0)
+        if a.is_partial():  # x's sum pending, w whole
+            y, gx, gw = Partial(), Replicate(), Partial()
+        elif a.is_shard(last):  # contraction split
+            y, gx, gw = Partial(), a, b
+        elif a.is_shard():  # rows split
+            y, gx, gw = a, a, Partial()
+        elif b.is_shard(1):  # columns split
+            y, gx, gw = Shard(last), Partial(), b
+        else:
+            y = gx = gw = Replicate()
+        xp.append(a)
+        wp.append(b)
+        yp.append(y)
+        gxp.append(gx)
+        gwp.append(gw)
+    return local_map(_matmul, out_placements=yp, in_placements=(xp, wp),
+                     in_grad_placements=(gxp, gwp), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,11 @@ per-(expert, column) int8 round trip, its backward the identity.
 ``ep_ff_data`` only changes the reference's sharding axes: accepted, no
 math changes.
 
+On DTensors (``shard=``): the routing, the dispatch and the combine are
+group-local and run on each rank's groups (``sharding.row_local``), the
+expert FFNs on each rank's (groups, experts) block (:func:`_experts`),
+both under ``local_map``; the aux loss averages over every group.
+
 Ties: ``lax.top_k`` puts the lower expert id first among equal router
 probabilities; ``torch.topk`` does not (on the CPU it picked the higher
 ids), so the top k are taken from a stable descending sort, which orders
@@ -35,10 +40,14 @@ ties as the reference does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed import sharding
 from . import core, mlp
 
 
@@ -111,19 +120,29 @@ def route(params: dict, cfg: MoeCfg, xg: torch.Tensor):
     Returns (top_p (G, N, k) float32 renormalised, flat_e (G, N*k) expert
     ids, pos (G, N*k) slots in the expert's buffer, clamped to ``cap - 1``
     where dropped, keep (G, N*k) bool, the aux loss, cap)."""
+    w = core.val(params["router"]["w"])
+    top_p, flat_e, pos, keep, probs, top1 = sharding.row_local(
+        functools.partial(_route_groups, cfg=cfg), 6, (xg,), (w,))
+    # ---- load-balancing aux (switch-style), over every group ----
+    density = torch.mean(top1, dim=(0, 1))
+    mean_probs = torch.mean(probs, dim=(0, 1))
+    aux = cfg.n_experts * torch.sum(density * mean_probs)
+    return top_p, flat_e, pos, keep, aux, capacity(cfg, xg.shape[1])
+
+
+def _route_groups(xg, w, *, cfg: MoeCfg):
+    """Each group's routing: (top_p, flat_e, pos, keep) as :func:`route`
+    returns them, the router's probs (G, N, E) and the one-hot top choice
+    (G, N, E) float32, which the aux loss averages over every group."""
     e, k = cfg.n_experts, cfg.top_k
     g, n, _ = xg.shape
-    logits = xg.to(torch.float32) @ core.val(params["router"]["w"])
+    logits = xg.to(torch.float32) @ w
     probs = torch.softmax(logits, dim=-1)  # (G, N, E)
     # a stable sort: ties to the lower expert id, as lax.top_k
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[..., :k], top_i[..., :k]  # (G, N, k)
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-
-    # ---- load-balancing aux (switch-style) ----
-    density = torch.mean(F.one_hot(top_i[..., 0], e).to(torch.float32), dim=(0, 1))
-    mean_probs = torch.mean(probs, dim=(0, 1))
-    aux = e * torch.sum(density * mean_probs)
+    top1 = F.one_hot(top_i[..., 0], e).to(torch.float32)
 
     # ---- group-local capacity: a (token, choice)'s place in its expert's queue
     cap = capacity(cfg, n)
@@ -132,61 +151,118 @@ def route(params: dict, cfg: MoeCfg, xg: torch.Tensor):
     pos = torch.gather(torch.cumsum(onehot, dim=1) - 1, 2, flat_e[..., None])[..., 0]
     keep = pos < cap
     pos = torch.where(keep, pos, cap - 1)
-    return top_p, flat_e, pos, keep, aux, cap
+    return top_p, flat_e, pos, keep, probs, top1
 
 
-class _W8Gather(torch.autograd.Function):
-    """Per-(expert, column) int8 round trip; straight-through gradient."""
-
-    @staticmethod
-    def forward(ctx, w):
-        w32 = w.to(torch.float32)
-        scale = core.divide(torch.amax(torch.abs(w32), dim=1, keepdim=True), 127.0)
-        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-        q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
-        return q.to(w.dtype) * scale.to(w.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g
-
-
-def w8_gather(w: torch.Tensor) -> torch.Tensor:
-    return _W8Gather.apply(w)
-
-
-def apply(params: dict, cfg: MoeCfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux_loss)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    g = _choose_groups(b, s)
-    n = b * s // g  # tokens per group
-    xg = x.reshape(g, n, d)
-    top_p, flat_e, pos, keep, aux, cap = route(params, cfg, xg)
-
-    # ---- dispatch: kept (token, choice) -> its own slot, dropped -> the spill row
+def _dispatch_groups(xg, flat_e, pos, keep, *, cap: int, e: int):
+    """Each group's dispatch buffer (G, E, C, D): a kept (token, choice) in
+    its own slot, a dropped one in the spill row (cut off)."""
+    g, n, d = xg.shape
+    k = flat_e.shape[1] // n
     slot = flat_e * cap + pos  # (G, N*k)
     spill = e * cap
     dest = torch.where(keep, slot, spill)[..., None].expand(g, n * k, d)
     copies = xg[:, :, None, :].expand(g, n, k, d).reshape(g, n * k, d)
-    buf = x.new_zeros((g, spill + 1, d)).scatter(1, dest, copies)
-    buf = buf[:, :spill].reshape(g, e, cap, d)
+    buf = xg.new_zeros((g, spill + 1, d)).scatter(1, dest, copies)
+    return buf[:, :spill].reshape(g, e, cap, d)
 
-    # ---- expert FFNs on stacked weights
-    wg, wu, wd = core.val(params["wg"]), core.val(params["wu"]), core.val(params["wd"])
-    if cfg.w8_gather:
-        wg, wu, wd = w8_gather(wg), w8_gather(wu), w8_gather(wd)
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, wg.to(x.dtype)))
-    h = h * torch.einsum("gecd,edf->gecf", buf, wu.to(x.dtype))
-    out_buf = torch.einsum("gecf,efd->gecd", h, wd.to(x.dtype))  # (G, E, C, D)
 
-    # ---- combine: each (token, choice)'s slot, weighted; a token's k in order
-    wts = (top_p.reshape(g, n * k) * keep).to(x.dtype)
-    y_slots = torch.gather(out_buf.reshape(g, spill, d), 1, slot[..., None].expand(g, n * k, d))
+def _expert_ffn(buf, wg, wu, wd):
+    """Each expert's gated FFN on its slots of every group (G, E, C, D)."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, wg))
+    h = h * torch.einsum("gecd,edf->gecf", buf, wu)
+    return torch.einsum("gecf,efd->gecd", h, wd)
+
+
+def _experts(buf, wg, wu, wd):
+    """:func:`_expert_ffn`; on DTensors each rank runs it on its block under
+    ``local_map``: the groups split as ``buf`` splits them (the weights
+    whole there, their gradients summed), the experts split as ``buf``
+    splits them (the weights' expert dim alike); any other split gathered.
+    (DTensor's rules for the einsums' backward give a block whose strides
+    its own views then misread.)"""
+    if not isinstance(buf, DTensor):
+        return _expert_ffn(buf, wg, wu, wd)
+    # per mesh dim: (buf, the weights, the weights' gradients)
+    rows = [(p, Replicate(), Partial()) if p == Shard(0)  # groups
+            else (p, Shard(0), Shard(0)) if p == Shard(1)  # experts
+            else (Replicate(),) * 3 for p in buf.placements]
+    bp, wp, gp = (list(col) for col in zip(*rows))
+    return local_map(_expert_ffn, out_placements=bp, in_placements=(bp, wp, wp, wp),
+                     in_grad_placements=(bp, gp, gp, gp), device_mesh=buf.device_mesh,
+                     redistribute_inputs=True)(buf, wg, wu, wd)
+
+
+def _combine_groups(out_buf, top_p, flat_e, pos, keep, *, cap: int):
+    """Each group's tokens (G, N, D): each (token, choice)'s slot, weighted;
+    a token's k in order."""
+    g, e, _, d = out_buf.shape
+    n, k = top_p.shape[1], top_p.shape[2]
+    slot = flat_e * cap + pos
+    wts = (top_p.reshape(g, n * k) * keep).to(out_buf.dtype)
+    y_slots = torch.gather(out_buf.reshape(g, e * cap, d), 1,
+                           slot[..., None].expand(g, n * k, d))
     y_slots = (y_slots * wts[..., None]).reshape(g, n, k, d)
     y = y_slots[:, :, 0]
     for j in range(1, k):
         y = y + y_slots[:, :, j]
+    return y
+
+
+class _W8Gather(torch.autograd.Function):
+    """Per-(expert, column) int8 round trip; straight-through gradient.
+    ``shard`` lays the int8 payload out on ('expert', None, None), the
+    reference's int8 all-gather site; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, w, shard):
+        w32 = w.to(torch.float32)
+        scale = core.divide(torch.amax(torch.abs(w32), dim=1, keepdim=True), 127.0)
+        scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+        q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+        q = shard(q, ("expert", None, None))
+        return q.to(w.dtype) * scale.to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def w8_gather(w: torch.Tensor, shard=None) -> torch.Tensor:
+    return _W8Gather.apply(w, shard or sharding.no_shard)
+
+
+def apply(params: dict, cfg: MoeCfg, x: torch.Tensor, *,
+          shard=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).
+
+    ``shard``: fn(tensor, logical_axes) -> tensor laying it out
+    (``distributed/sharding.py:make_shard_fn``), applied where the
+    reference constrains: the groups on 'batch', the dispatch buffer on
+    ('batch', 'expert'), the experts' output gathered back to its groups,
+    and the int8 payload of ``w8_gather``; the identity if None."""
+    shard = shard or sharding.no_shard
+    b, s, d = x.shape
+    g = _choose_groups(b, s)
+    n = b * s // g  # tokens per group
+    xg = shard(x.reshape(g, n, d), ("batch", None, None))
+    top_p, flat_e, pos, keep, aux, cap = route(params, cfg, xg)
+
+    # ---- dispatch: kept (token, choice) -> its own slot, dropped -> the spill row
+    buf = sharding.row_local(functools.partial(_dispatch_groups, cap=cap, e=cfg.n_experts), 1,
+                             (xg, flat_e, pos, keep))
+    buf = shard(buf, ("batch", "expert", None, None))
+
+    # ---- expert FFNs on stacked weights
+    wg, wu, wd = core.val(params["wg"]), core.val(params["wu"]), core.val(params["wd"])
+    if cfg.w8_gather:
+        wg, wu, wd = w8_gather(wg, shard), w8_gather(wu, shard), w8_gather(wd, shard)
+    out_buf = _experts(buf, wg.to(x.dtype), wu.to(x.dtype), wd.to(x.dtype))  # (G, E, C, D)
+    out_buf = shard(out_buf, ("batch", None, None, None))  # gather experts per group
+
+    # ---- combine: each (token, choice)'s slot, weighted; a token's k in order
+    y = sharding.row_local(functools.partial(_combine_groups, cap=cap), 1,
+                           (out_buf, top_p, flat_e, pos, keep))
     y = y.reshape(b, s, d)
 
     if "shared" in params:

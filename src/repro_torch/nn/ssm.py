@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding
 from . import core
 from .core import val
 
@@ -128,7 +129,9 @@ def apply(params, cfg: MambaCfg, x, *, state=None, conv_state=None):
     di, gn = cfg.d_inner, cfg.n_groups * cfg.d_state
     xi, bb, cc = conv_out[..., :di], conv_out[..., di:di + gn], conv_out[..., di + gn:]
 
-    dt = F.softplus(dt.to(torch.float32) + val(params["dt_bias"]))
+    # each rank's own block for a DTensor: DTensor's softplus_backward labels
+    # its output contiguous where the local result follows a transposed grad
+    dt = sharding.elementwise(F.softplus, dt.to(torch.float32) + val(params["dt_bias"]))
     A = -torch.exp(val(params["A_log"]))  # (H,), negative
     D = val(params["D"])
 
@@ -136,18 +139,26 @@ def apply(params, cfg: MambaCfg, x, *, state=None, conv_state=None):
         state = torch.zeros((b, cfg.n_heads, cfg.head_dim, cfg.d_state), dtype=torch.float32,
                             device=x.device)
 
-    if cfg.impl == "ssd" and s % cfg.chunk == 0 and s > 1:
-        y, new_state = _ssd_chunked(xi, bb, cc, dt, state, A=A, D=D, cfg=cfg)
-    else:
-        step = functools.partial(_cell, A=A, D=D, n_heads=cfg.n_heads, head_dim=cfg.head_dim)
-        xs = tuple(a.transpose(0, 1) for a in (xi, bb, cc, dt))  # time leading
-        new_state, ys = core.segmented_scan(step, state, xs)
-        y = ys.transpose(0, 1)  # (B, S, DI)
+    y, new_state = sharding.row_local(functools.partial(_scan_rows, cfg=cfg), 2,
+                                      (xi, bb, cc, dt, state), (A, D))
     y = y.to(x.dtype)
 
     y = y * F.silu(z)
     y = core.rmsnorm(params["norm"], y)
     return core.dense(params["wo"], y), (new_state, new_conv)
+
+
+def _scan_rows(xi, bb, cc, dt, state, A, D, *, cfg: MambaCfg):
+    """The selective scan of each batch row from ``state``: the chunked SSD
+    where the length is whole chunks, else the cell a step. -> (y (B, S,
+    DI), state)."""
+    s = xi.shape[1]
+    if cfg.impl == "ssd" and s % cfg.chunk == 0 and s > 1:
+        return _ssd_chunked(xi, bb, cc, dt, state, A=A, D=D, cfg=cfg)
+    step = functools.partial(_cell, A=A, D=D, n_heads=cfg.n_heads, head_dim=cfg.head_dim)
+    xs = tuple(a.transpose(0, 1) for a in (xi, bb, cc, dt))  # time leading
+    new_state, ys = core.segmented_scan(step, state, xs)
+    return ys.transpose(0, 1), new_state  # (B, S, DI)
 
 
 def _ssd_chunk(h_prev, xck, bck, cck, dck, *, A, D, mask):

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding
 from . import core
 from .core import val
 
@@ -122,17 +123,26 @@ def mlstm_apply(params, cfg: XlstmCfg, x, *, state=None):
         kw = dict(dtype=torch.float32, device=x.device)
         state = (torch.zeros((b, h, p, p), **kw), torch.zeros((b, h, p), **kw),
                  torch.full((b, h), -1e30, **kw))
-    if cfg.impl == "chunked" and s % cfg.chunk == 0 and s > 1:
-        y, new_state = _mlstm_chunked(q, k, v, it, ft, state, n_heads=h, head_dim=p,
-                                      chunk=cfg.chunk)
-    else:
-        xs = tuple(a.transpose(0, 1) for a in (q, k, v, it, ft))
-        new_state, ys = core.segmented_scan(
-            functools.partial(_mlstm_cell, n_heads=h, head_dim=p), state, xs)
-        y = ys.transpose(0, 1)
+    y, *new_state = sharding.row_local(functools.partial(_mlstm_rows, cfg=cfg), 4,
+                                       (q, k, v, it, ft) + tuple(state))
     y = y.to(x.dtype)
     y = core.rmsnorm(params["norm"], y) * gate
-    return core.dense(params["w_down"], y), new_state
+    return core.dense(params["w_down"], y), tuple(new_state)
+
+
+def _mlstm_rows(q, k, v, it, ft, C, n, m, *, cfg: XlstmCfg):
+    """The mLSTM recurrence of each batch row from state (C, n, m): the
+    chunked form where the length is whole chunks, else the cell a step.
+    -> (y (B, S, H*P), C, n, m)."""
+    h, p, s = cfg.n_heads, cfg.head_dim, q.shape[1]
+    if cfg.impl == "chunked" and s % cfg.chunk == 0 and s > 1:
+        y, new_state = _mlstm_chunked(q, k, v, it, ft, (C, n, m), n_heads=h, head_dim=p,
+                                      chunk=cfg.chunk)
+        return (y, *new_state)
+    xs = tuple(a.transpose(0, 1) for a in (q, k, v, it, ft))
+    new_state, ys = core.segmented_scan(
+        functools.partial(_mlstm_cell, n_heads=h, head_dim=p), (C, n, m), xs)
+    return (ys.transpose(0, 1), *new_state)
 
 
 def cummax(a: torch.Tensor) -> torch.Tensor:
@@ -267,15 +277,25 @@ def slstm_apply(params, cfg: XlstmCfg, x, *, state=None):
     """x: (B,S,D) -> (y, state)."""
     b, s, d = x.shape
     nh, hd = cfg.n_heads, cfg.s_head_dim
-    xs = tuple(core.dense(params[f"w{g}"], x).to(torch.float32).reshape(b, s, nh, hd)
-               .transpose(0, 1) for g in GATES)
+    xs = tuple(sharding.unflatten(core.dense(params[f"w{g}"], x).to(torch.float32), -1, (nh, hd))
+               for g in GATES)
     r_all = torch.cat([val(params[f"r{g}"]).to(torch.float32) for g in GATES], dim=-1)
     if state is None:
         z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = (z, z, z, torch.full((b, nh), -1e30, dtype=torch.float32, device=x.device))
-    new_state, ys = core.segmented_scan(
-        functools.partial(_slstm_cell, r_all=r_all, n_heads=nh, head_dim=hd), state, xs)
-    y = ys.transpose(0, 1).to(x.dtype)
+    y, *new_state = sharding.row_local(functools.partial(_slstm_rows, n_heads=nh, head_dim=hd),
+                                       5, xs + tuple(state), (r_all,))
+    y = y.to(x.dtype)
     y = core.rmsnorm(params["norm"], y)
     y = core.dense(params["ffn_down"], core.ACTIVATIONS["gelu"](core.dense(params["ffn_up"], y)))
-    return y, new_state
+    return y, tuple(new_state)
+
+
+def _slstm_rows(xi, xf, xz, xo, c, n, h, m, r_all, *, n_heads, head_dim):
+    """The sLSTM recurrence of each batch row over its (B, S, H, hd) input
+    projections from state (c, n, h, m) -> (y (B, S, D), c, n, h, m)."""
+    xs = tuple(a.transpose(0, 1) for a in (xi, xf, xz, xo))  # time leading
+    new_state, ys = core.segmented_scan(
+        functools.partial(_slstm_cell, r_all=r_all, n_heads=n_heads, head_dim=head_dim),
+        (c, n, h, m), xs)
+    return (ys.transpose(0, 1), *new_state)
