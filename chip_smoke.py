@@ -252,7 +252,13 @@ Phases (any failure raises and the script exits non-zero):
              cache allocated in its layout) and a depth-2 train step with
              its update (B = 4, S = 4096), each output bit for bit against
              the unsharded step, both walls printed (DTensor's host
-             dispatch in the sharded one).
+             dispatch in the sharded one); (f) DiT-XL/2's float and W8A8
+             denoisers at full width, B = 2, on the (1, 1) mesh (params by
+             ``param_shardings``, the W8A8 weights whole, the batch by the
+             dry run's layouts, run under ``sharding.replicating``): each
+             output bit for bit against the unsharded step, the W8A8 step's
+             201 ``int8_matmul`` launches, sharded as unsharded, each
+             product held to the plain version exactly, both walls printed.
 14. launch — the launch tooling: (a) ``launch/dryrun.py``'s one-card
              record of every (arch, shape) cell at full width, at the
              batches the earlier phases cut the cells to (the recurrent
@@ -260,7 +266,8 @@ Phases (any failure raises and the script exits non-zero):
              counted on fake tensors in worker processes that cannot see
              the card, the layout records of both production meshes
              here and qwen3-0.6b's sharded train, prefill and decode steps
-             counted for one rank of the fake 16x16 mesh, the card's
+             and DiT-XL/2's W8A8 denoiser (B = 32, 2 rows a rank) counted
+             for one rank of the fake 16x16 mesh, the card's
              memory unmoved; (b) the dry run held against
              the card on qwen3-0.6b's ``prefill_32k`` (B = 1),
              ``decode_32k`` (B = 16, 32768 slots) and ``train_4k`` (B = 4)
@@ -2736,6 +2743,9 @@ SHARD_PREFILL = (1, 4096)
 SHARD_DECODE = (16, 8, 4096)
 SHARD_TRAIN = (4, 4096, 2)
 PIPE_KERNELS = ("int8_matmul",)
+# (f): DiT-XL/2's denoisers on the (1, 1) mesh, the slice's B = 2
+DIST_DIT_BATCH = B
+DIST_DIT_KERNELS = ("int8_matmul",)
 
 
 def dist_rules() -> dict:
@@ -2980,6 +2990,87 @@ def dist_sharded(mesh) -> dict:
     return out
 
 
+def dist_dit(mesh) -> dict:
+    """(f): DiT-XL/2's float and W8A8 denoisers at full width on the one-rank
+    (1, 1) mesh: the float params laid out by ``param_shardings`` of
+    ``param_axes``, the W8A8 weights by ``param_axes(int8=True)``'s (whole),
+    the batch by the dry run's layouts, each step run under
+    ``sharding.replicating``; each output bit for bit against the unsharded
+    step on the same inputs. The W8A8 step's products launch
+    ``int8_matmul`` as many times sharded as unsharded (each rank's rows
+    through ``sharding.row_local``), each held to the plain version
+    exactly; both walls of each step, warm (the median of 3 calls each,
+    interleaved, unheld), and the sharded first call's (DTensor propagates
+    each op's layout once; the products held)."""
+    arch = launch_arch("dit-xl2")
+    cfg = train_steps.make_dit_model(arch)
+    rules = sharding.make_rules(arch)
+    shard = sharding.make_shard_fn(rules, mesh)
+    g = torch.Generator(device=DEVICE).manual_seed(89)
+    params = dit.init(g, cfg, device=DEVICE)
+    params["blocks"]["mod"]["w"].normal_(0.0, 0.02, generator=g)  # the blocks gated in
+    qparams = dit_int8.quantize_params(params, cfg)
+    axes, _ = train_steps.param_axes(arch)
+    q_axes, q_shapes = train_steps.param_axes(arch, int8=True)
+    laid = {"float": _laid_out(params, sharding.param_shardings(axes, params, rules, mesh)),
+            "w8a8": _laid_out(qparams, sharding.param_shardings(q_axes, q_shapes, rules, mesh))}
+    b = DIST_DIT_BATCH
+    batch = {"latents": torch.randn((b, cfg.input_size, cfg.input_size, cfg.in_channels),
+                                    generator=g, device=DEVICE),
+             "t": torch.randint(0, 1000, (b,), generator=g, device=DEVICE).to(torch.float32),
+             "labels": torch.randint(0, cfg.n_classes, (b,), generator=g, device=DEVICE)}
+    lays = dryrun.batch_shardings(arch, configs.SHAPES["prefill_32k"], mesh, rules, batch=b)[0]
+    sbatch = {k: sharding.layout(v.clone(), lays[k]) for k, v in batch.items()}
+    n_products = 7 * cfg.n_layers + 5
+    out: dict = {"arch": arch.name, "batch": b, "mesh": list(mesh.shape),
+                 "want_launches": n_products}
+    mismatched = []
+    for name, step, p in (("float", train_steps.make_denoise_step(arch), params),
+                          ("w8a8", train_steps.make_denoise_step(arch, int8=True), qparams)):
+        def sharded():
+            with sharding.replicating(shard):
+                return step(laid[name], sbatch)
+
+        with int8_held_exactly(f"distributed (f) {name}") as held:
+            zero_counts()
+            want = step(p, batch)
+            plain_launches = launch_counts()
+            zero_counts()
+            got, first_s = synced_wall(sharded)
+            sharded_launches = launch_counts()
+        walls = {"plain": [], "sharded": []}
+        for _ in range(3):  # warm, unheld, interleaved
+            walls["plain"].append(synced_wall(lambda: step(p, batch))[1])
+            walls["sharded"].append(synced_wall(sharded)[1])
+        row = dict(bit_identical=torch.equal(_whole(got), want),
+                   finite=bool(torch.isfinite(want).all()),
+                   placements=[str(x) for x in got.placements],
+                   plain_s=statistics.median(walls["plain"]),
+                   sharded_s=statistics.median(walls["sharded"]),
+                   sharded_first_held_s=first_s,
+                   plain_launches={k: v for k, v in plain_launches.items() if v},
+                   sharded_launches={k: v for k, v in sharded_launches.items() if v},
+                   held_exact=sum(held.values()))
+        out[name] = row
+        want_launches = ({k: n_products for k in DIST_DIT_KERNELS} if name == "w8a8" else {})
+        if not (row["bit_identical"] and row["finite"]):
+            mismatched.append(name)
+        if (row["plain_launches"] != want_launches or row["sharded_launches"] != want_launches
+                or row["held_exact"] != 2 * sum(want_launches.values())):  # plain, sharded
+            mismatched.append(f"{name} launches")
+        del got, want
+    del params, qparams, laid
+    free_card()
+    say(f"distributed dit: {json.dumps(out)}")
+    say(f"distributed dit walls: float {out['float']['plain_s']:.3f} s plain, "
+        f"{out['float']['sharded_s']:.3f} s sharded; w8a8 {out['w8a8']['plain_s']:.3f} s plain, "
+        f"{out['w8a8']['sharded_s']:.3f} s sharded (medians of 3 warm calls)")
+    if mismatched:
+        raise AssertionError(f"distributed (f): the sharded denoisers differ from the "
+                             f"unsharded: {mismatched}: {out}")
+    return out
+
+
 def pipe_layer(cfg):
     """``layer_fn`` of the W8A8 pipeline: a microbatch's activation is its
     tokens with the activated conditioning appended as one more row (both
@@ -3061,7 +3152,7 @@ def phase_distributed() -> dict:
     """The rest of ``distributed/`` on one rank: (a) the sharding rules of
     every config, (b) layouts and the elastic restore, (c) the compressed
     all-reduce, (d) the W8A8 pipeline, (e) the sharded LM steps (``shard=``)
-    against the unsharded ones."""
+    and (f) the sharded DiT denoisers against the unsharded ones."""
     free_card()
     t_phase = time.perf_counter()
     zero_counts()
@@ -3080,8 +3171,11 @@ def phase_distributed() -> dict:
         t = time.perf_counter()
         out["sharded"] = dist_sharded(mesh_mod.make_test_mesh())
         walls["e"] = time.perf_counter() - t
-    if any(launch_counts().values()):  # (a) - (c), (e) reach no TPU kernel
-        raise AssertionError(f"distributed: a Ditto kernel launched: {launch_counts()}")
+        if any(launch_counts().values()):  # (a) - (c), (e) reach no TPU kernel
+            raise AssertionError(f"distributed: a Ditto kernel launched: {launch_counts()}")
+        t = time.perf_counter()
+        out["dit"] = dist_dit(mesh_mod.make_test_mesh())  # counts its own launches
+        walls["f"] = time.perf_counter() - t
     t = time.perf_counter()
     out["pipeline"] = dist_pipeline()
     walls["d"] = time.perf_counter() - t
@@ -3107,10 +3201,11 @@ LAUNCH_DIT_BATCH = B  # the denoiser cells: the slice's B = 2
 LAUNCH_REC_SEQ = dryrun.EXTRAPOLATE_LEN
 LAUNCH_WORKERS = max(1, (os.cpu_count() or 2) - 1)  # (a): a process a core, the card hidden
 LAUNCH_PEAK_TOL = 0.2  # (b): predicted against measured peak, relative
-# (a): the sharded step of these cells on the fake 16x16 mesh (every other
-# production cell: its layouts)
-LAUNCH_PROGRAMS = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
-                   ("qwen3-0.6b", "decode_32k"))
+# (a): the sharded step of these cells (arch, shape, variant) on the fake
+# 16x16 mesh at the cell's global batch (every other production cell: its
+# layouts)
+LAUNCH_PROGRAMS = (("qwen3-0.6b", "train_4k", ""), ("qwen3-0.6b", "prefill_32k", ""),
+                   ("qwen3-0.6b", "decode_32k", ""), ("dit-xl2", "prefill_32k", "int8"))
 LAUNCH_TIMED = 3  # (b): timed runs a cell after the counted one (the LM prefill: 1)
 # (b): (arch, shape, batch, variant)
 LAUNCH_CHECKS = (
@@ -3189,9 +3284,11 @@ def launch_dry_all() -> dict:
                for m in ("16x16", "2x16x16")]
     layout_s = time.perf_counter() - t
     t = time.perf_counter()
-    programs = [dryrun.run_cell(name, shape, mesh="16x16") for name, shape in LAUNCH_PROGRAMS]
+    programs = [dryrun.run_cell(name, shape, mesh="16x16", variant=variant)
+                for name, shape, variant in LAUNCH_PROGRAMS]
     for rec in programs:
-        say(f"launch (a) {rec['arch']} {rec['shape']} 16x16 sharded step "
+        say(f"launch (a) {rec['arch']} {rec['shape']} variant={rec['variant'] or '-'} "
+            f"B={rec['batch']} 16x16 sharded step "
             f"{rec['status']}{dryrun.summary(rec)} collectives "
             f"{json.dumps(rec['collectives']['by_op'])}")
     for rec in layouts:

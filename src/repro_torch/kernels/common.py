@@ -20,6 +20,11 @@
   built on first use, under a lock (two serving threads may reach their
   first launch together), never at import (the CPU tests import every
   module).
+* :func:`refuse_dtensor` — a wrapper takes plain tensors only: a
+  ``DTensor`` raises, naming ``distributed/sharding.py:row_local``, which
+  hands each rank's block to a wrapper as a plain tensor (the plain
+  version would run on the whole value, and the kernel would read a
+  ``DTensor``'s pointer).
 * :func:`record_work` / :func:`recording` — a wrapper reports the work
   of a launch (operations, bytes) to the step analyzer
   (``repro_torch/launch/op_analysis.py``), and its static arguments
@@ -52,12 +57,13 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
            "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
-           "resolve_device", "is_fake", "operands", "record_work", "recording",
-           "CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build_library", "cuda_fn",
-           "call", "launch_check", "check_cuda_operand"]
+           "resolve_device", "is_fake", "refuse_dtensor", "operands", "record_work",
+           "recording", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build_library",
+           "cuda_fn", "call", "launch_check", "check_cuda_operand"]
 
 #: The int8-everywhere default; DittoPlan.low_bits and every kernel
 #: signature share this one constant.
@@ -86,6 +92,18 @@ def resolve_device(device=None) -> torch.device:
 def is_fake(t: torch.Tensor) -> bool:
     """A tensor with no data: a meta tensor, or a fake one (``FakeTensorMode``)."""
     return t.is_meta or isinstance(t, FakeTensor)
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` when an operand of the wrapper ``name`` is a
+    ``DTensor``: a kernel runs on one rank's block, which
+    ``sharding.row_local`` hands it as a plain tensor."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name}: got a DTensor ({t.placements} over {t.device_mesh}); a kernel "
+                f"runs on one rank's block: call it under sharding.row_local, which hands "
+                f"it each rank's rows as a plain tensor")
 
 
 _recorder = None

@@ -54,6 +54,7 @@ def diff_encode(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
                 bk: int = 128) -> torch.Tensor:
     """x_*: (..., M, K) int8 -> tile classes (..., M/bm, K/bk) int32."""
     global launches
+    common.refuse_dtensor("diff_encode", x_t, x_prev)
     m, k = x_t.shape[-2:]
     if x_prev.shape != x_t.shape or m % bm or k % bk:
         raise ValueError(f"diff_encode: shapes {tuple(x_t.shape)}, {tuple(x_prev.shape)} "

@@ -87,6 +87,7 @@ def ditto_diff_matmul(x_t: torch.Tensor, x_prev: torch.Tensor, w_q: torch.Tensor
     contribution); classes: (..., M/bm, K/bk) int32 from diff_encode.
     Returns y_t (..., M, N) int32."""
     global launches, launches_int4
+    common.refuse_dtensor("ditto_diff_matmul", x_t, x_prev, w_q, y_prev, classes)
     common.validate_low_bits(low_bits)
     m, k = x_t.shape[-2:]
     n, k2 = w_q.shape[-2:] if w_transposed else w_q.shape[-2:][::-1]

@@ -93,6 +93,7 @@ def diff_encode_fused(x_t: torch.Tensor, x_prev: torch.Tensor, *, bm: int = 128,
     values only on the tiles whose class gates them in (``dc``: class >= 1,
     ``dh``: class 2); elsewhere the kernel leaves them unwritten."""
     global encode_launches
+    common.refuse_dtensor("diff_encode_fused", x_t, x_prev)
     m, k = x_t.shape[-2:]
     if x_prev.shape != x_t.shape or m % bm or k % bk:
         raise ValueError(f"diff_encode_fused: shapes {tuple(x_t.shape)}, "
@@ -140,6 +141,7 @@ def ditto_fused_matmul(w_q: torch.Tensor, dcache: torch.Tensor, dhigh: torch.Ten
     (..., M, K/2) int8, dhigh (..., M, K) int8 and classes
     (..., M/bm, K/bk) int32, all from :func:`diff_encode_fused`."""
     global matmul_launches
+    common.refuse_dtensor("ditto_fused_matmul", w_q, dcache, dhigh, classes, y_prev)
     m, k = dhigh.shape[-2:]
     n, k2 = w_q.shape[-2:] if w_transposed else w_q.shape[-2:][::-1]
     lead = dhigh.shape[:-2]

@@ -64,6 +64,7 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, *, bm: int = 128, bn: int 
     """x_q (..., M, K) int8; w_q (..., K, N) int8, or (..., N, K) with
     ``w_transposed``. Returns (..., M, N) int32."""
     global launches
+    common.refuse_dtensor("int8_matmul", x_q, w_q)
     m, k = x_q.shape[-2:]
     n, k2 = w_q.shape[-2:] if w_transposed else w_q.shape[-2:][::-1]
     if k != k2 or m % bm or n % bn or k % bk:

@@ -15,8 +15,8 @@ inputs laid out by ``distributed/sharding.py``'s rules, counted for one
 rank: the per-device program, its ``cost``, its ``collectives`` and its
 ``roofline``. The record also holds the bytes the layouts put on one
 device (params, the AdamW moments, the decode cache, the batch). The W8A8
-denoiser (``variant="int8"``) stays at ``status`` ``"layout"``: its
-``int8_matmul`` wrapper has no DTensor path (``NO_PROGRAM``).
+denoiser (``variant="int8"``) runs on its replicated int8 weights, each
+rank's ``int8_matmul`` on its own rows (``models/dit_int8.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape prefill_32k --mesh 1 --batch 1
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1
@@ -56,8 +56,6 @@ from .mesh import fake_mesh, make_production_mesh
 MESHES = ("1", "16x16", "2x16x16")
 #: The lengths the recurrent long cells are counted at: L, 2L, 3L.
 EXTRAPOLATE_LEN = 512
-NO_PROGRAM = ("the W8A8 denoiser's int8_matmul wrapper has no DTensor path (ROADMAP item "
-              "16): a device's program, its cost and its collectives are not counted")
 LAYOUT_ONLY = "layouts only (program=False): the sharded step was not run"
 
 
@@ -102,6 +100,12 @@ def batch_shardings(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: i
     return {k: sh.spec_layout(mesh, spec(v)) for k, v in specs.items()}, specs
 
 
+def _w8a8(arch: ArchConfig, shape: ShapeCell, variant: str) -> bool:
+    """Whether a cell runs the W8A8 denoiser: ``variant="int8"`` on a
+    diffusion arch's serving cells (its train cell trains the float DiT)."""
+    return variant == "int8" and arch.family == "diffusion" and shape.kind != "train"
+
+
 def _batch_shards(mesh, rules) -> int:
     return math.prod(sh.mesh_axes(mesh)[a] for a in sh.batch_axes(mesh, rules))
 
@@ -122,14 +126,18 @@ def _on_mesh(tree, lays):
                                     for t, lay in zip(tr.leaves(tree), tr.leaves(lays))])
 
 
-def count_sharded(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: int) -> dict:
+def count_sharded(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: int,
+                  variant: str = "") -> dict:
     """``op_analysis.analyze`` of one cell's sharded step for one rank of
     ``mesh`` (a ``DeviceMesh``): params, optimizer state, batch and decode
     cache laid out by the rules on ``meta`` blocks, the LM steps built with
     ``shard=make_shard_fn(rules, mesh)``; the diffusion steps, which take no
-    ``shard``, on the same layouts under ``sharding.replicating``."""
+    ``shard``, on the same layouts under ``sharding.replicating``
+    (``variant="int8"``: the W8A8 denoiser on ``param_axes(int8=True)``'s
+    replicated weights)."""
     shard = sh.make_shard_fn(rules, mesh)
-    axes, shapes = steps_mod.param_axes(arch)
+    int8 = _w8a8(arch, shape, variant)
+    axes, shapes = steps_mod.param_axes(arch, int8=int8)
     b_lays, specs = batch_shardings(arch, shape, mesh, rules, batch=batch)
     # a 0-d input (the decode position) stays a plain tensor
     inputs = {k: v if v.dim() == 0 else _on_mesh(v, b_lays[k]) for k, v in specs.items()}
@@ -151,7 +159,8 @@ def count_sharded(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, batch: int
             return op_analysis.analyze(step.with_noise, state, inputs, t, eps)
         params = _on_mesh(shapes, sh.param_shardings(axes, shapes, rules, mesh))
         if arch.family == "diffusion":
-            return op_analysis.analyze(steps_mod.make_denoise_step(arch), params, inputs)
+            return op_analysis.analyze(steps_mod.make_denoise_step(arch, int8=int8), params,
+                                       inputs)
         if shape.kind == "prefill":
             return op_analysis.analyze(steps_mod.make_prefill_step(arch, shard=shard), params,
                                        inputs)
@@ -171,10 +180,10 @@ def count_step(arch: ArchConfig, shape: ShapeCell, *, variant: str = "",
     reads the step counter on the host."""
     b = batch or shape.global_batch
     dev = op_analysis.fake_device()
-    int8 = variant == "int8"
+    int8 = _w8a8(arch, shape, variant)
     with op_analysis.fake_mode():
         specs = op_analysis.fake_like(input_specs(arch, shape, batch_override=b), dev)
-        _, shapes = steps_mod.param_axes(arch, int8=int8 and arch.family == "diffusion")
+        _, shapes = steps_mod.param_axes(arch, int8=int8)
         params = op_analysis.fake_like(shapes, dev)
         if shape.kind == "train":
             opt = steps_mod.make_optimizer(arch)
@@ -275,7 +284,7 @@ def layout_record(arch: ArchConfig, shape: ShapeCell, mesh, rules, *, variant: s
                   batch: int | None = None) -> dict:
     """The bytes one device of a production mesh holds for the cell."""
     b = batch or shape.global_batch
-    int8 = variant == "int8" and arch.family == "diffusion"
+    int8 = _w8a8(arch, shape, variant)
     axes, shapes = steps_mod.param_axes(arch, int8=int8)
     mem = {"param_bytes_per_device": sh.sharded_bytes(axes, shapes, rules, mesh)}
     if shape.kind == "train":
@@ -338,16 +347,16 @@ def run_cell(arch: str | ArchConfig, shape_name: str, *, mesh: str = "16x16",
         rules = sh.make_rules(arch, multi_pod=mesh == "2x16x16")
         layout = layout_record(arch, shape, prod_mesh, rules, variant=variant, batch=b)
         rec["layout_s"] = round(time.monotonic() - t0, 2)
-        if not program or (variant == "int8" and arch.family == "diffusion"):
+        if not program:
             rec["memory"] = layout
             rec["fits"] = layout["state_bytes_per_device"] <= roofline.HBM_BYTES
             rec.update(cost=None, collectives=None, roofline=None, model_flops_global=mf,
-                       status="layout", reason=NO_PROGRAM if program else LAYOUT_ONLY)
+                       status="layout", reason=LAYOUT_ONLY)
             return rec
         t0 = time.monotonic()
         with fake_mesh(prod_mesh) as dmesh:
             res, lengths = count_cell(arch, shape, count=functools.partial(
-                count_sharded, mesh=dmesh, rules=rules, batch=b))
+                count_sharded, mesh=dmesh, rules=rules, batch=b, variant=variant))
     else:
         res, lengths = count_cell(arch, shape, variant=variant, batch=b)
     rec["analyze_s"] = round(time.monotonic() - t0, 2)

@@ -37,6 +37,11 @@ propagation partitions every op, and a tensor the step makes itself is
 taken as replicated (``sharding.replicating``). A constraint moves data and
 never changes a value: the sharded step returns what the unsharded one
 does, up to the order of the sums that cross ranks.
+
+The diffusion steps take no ``shard``, as the reference's take none; they
+run on DTensors laid out by the caller (the params by ``param_shardings``,
+the batch over the batch axes) under ``sharding.replicating``, as the
+reference's jitted step runs on sharded arrays.
 """
 from __future__ import annotations
 
@@ -328,7 +333,14 @@ def make_decode_step(arch: ArchConfig, *, shard=None) -> Callable:
 def make_denoise_step(arch: ArchConfig, *, int8: bool = False) -> Callable:
     """One denoiser forward (the unit the Ditto sampler iterates).
     ``int8``: the W8A8 serving path (``models.dit_int8``), whose products run
-    on the port's ``int8_matmul`` kernel on the card."""
+    on the port's ``int8_matmul`` kernel on the card.
+
+    Both take the batch split: on DTensors (the latents, t and labels split
+    over the batch axes, the params laid out by ``param_axes``' layouts, the
+    W8A8 weights whole), run under ``sharding.replicating``, each rank
+    denoises its own rows and the output keeps the split; the W8A8 step's
+    per-tensor scales are the whole batch's, and each rank's products
+    launch the kernel on its own rows."""
     if arch.family != "diffusion":
         raise ValueError(f"make_denoise_step needs the diffusion family, not {arch.family}")
     dcfg = make_dit_model(arch)

@@ -10,6 +10,14 @@ the Ditto engine's act layers run; on the CPU its plain version. The
 product is exact either way, so the two devices differ only where the
 float32 glue does.
 
+On DTensors (the sharded step: the batch split over the batch axes, the
+int8 weights whole, as ``launch/steps.py:param_axes(int8=True)`` lays them
+out) the float32 glue runs under DTensor's own rules, which keep the
+batch split; each product runs on each rank's rows (:func:`int8_product`),
+and each activation's per-tensor scale stays the whole batch's
+(:func:`quantize_act`), so every rank computes the unsharded step's int8
+operands and int32 products for its rows.
+
 Kept from the reference: attention here applies no RoPE (``nn/dit.py``'s
 ``apply`` does), ``amax / 127`` and ``x / scale`` are true divisions
 (``nn/core.py:divide``), rounding is half to even.
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from ..kernels import ops
 from ..nn import core as nncore
 from ..nn import dit as dit_mod
@@ -56,20 +65,34 @@ def quantize_params(params, cfg: dit_mod.DiTCfg):
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor dynamic int8 quantization: (x_q int8, scale float32)."""
+    """Per-tensor dynamic int8 quantization: (x_q int8, scale float32).
+
+    The scale is the whole tensor's, as ``jnp.max`` is global in the
+    reference: on a DTensor whose rows are split, each rank's max is a
+    pending max that one all-reduce of 4 bytes resolves (exact: a max does
+    not depend on its order), and every rank rounds its rows with the same
+    scale."""
     xf = x.to(torch.float32)
-    amax = torch.amax(torch.abs(xf))
+    amax = sharding.reduced(torch.amax(torch.abs(xf)))
     xs = torch.where(amax > 0, nncore.divide(amax, 127.0), 1.0)
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
 
 
-def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """(..., K) int8 @ (K, N) int8 -> (..., N) int32, exact, through
-    ``ops.int8_act_matmul`` (the kernel on the card)."""
+def _product_rows(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     lead = xq.shape[:-1]
     y = ops.int8_act_matmul(xq.reshape(-1, xq.shape[-1]), wq)
     return y.reshape(lead + (wq.shape[-1],))
+
+
+def int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(..., K) int8 @ (K, N) int8 -> (..., N) int32, exact, through
+    ``ops.int8_act_matmul`` (the kernel on the card). On DTensors (x's
+    batch rows split over the batch axes, the weights whole, as
+    ``param_axes(int8=True)`` lays them out) each rank multiplies its own
+    rows under ``sharding.row_local``: it pads them to the tile, the
+    wrapper sees plain tensors, and the result keeps x's row split."""
+    return sharding.row_local(_product_rows, 1, rows=(xq,), shared=(wq,))
 
 
 def _qdense(w8: dict, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ model FLOPs, the roofline dict under the reference's constants),
 reference's analysis of the same step jitted, hand-counted bytes and peak,
 the in-place rule, collectives on the ``fake`` backend, ``int8_matmul``'s
 fake leg) and ``launch/dryrun.py`` (the layouts against the reference's
-specs, the affine extrapolation, ``run_cell`` on every family).
+specs, the affine extrapolation, ``run_cell`` on every family);
+``launch/roofline_md.py`` renders what ``dryrun.main`` wrote.
 """
 import dataclasses
 import importlib
@@ -31,7 +32,7 @@ from repro.models.lm import LM as RLM  # noqa: E402
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.distributed import collectives, sharding  # noqa: E402
 from repro_torch.kernels import common, int8_matmul  # noqa: E402
-from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
+from repro_torch.launch import dryrun, op_analysis, roofline, roofline_md  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
@@ -415,3 +416,50 @@ def test_main_writes_records(tmp_path):
                         "--out", str(tmp_path)]) == 0
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "smollm-360m_long_500k_16x16.json", "smollm-360m_long_500k_2x16x16.json"]
+
+
+def test_roofline_md_renders_main_records(tmp_path, monkeypatch, capsys):
+    """``python -m repro_torch.launch.roofline_md`` over the records that
+    ``dryrun.main`` wrote (smoke configs): a table for each mesh, the W8A8
+    cell's row on one card and on 16x16 with its variant and batch, the
+    skip rows' reason, the layout row's state bytes and an error row."""
+    real_get = configs.get
+    monkeypatch.setattr(dryrun.configs, "get", lambda name: real_get(name).smoke())
+    out = str(tmp_path)
+    for argv in (["--arch", "dit-xl2", "--shape", "prefill_32k", "--mesh", "16x16",
+                  "--variant", "int8", "--batch", "32"],
+                 ["--arch", "dit-xl2", "--shape", "prefill_32k", "--mesh", "1",
+                  "--variant", "int8", "--batch", "2"],
+                 ["--arch", "smollm-360m", "--shape", "long_500k", "--both-meshes"],
+                 ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--mesh", "16x16",
+                  "--layouts-only"]):
+        assert dryrun.main(argv + ["--out", out]) == 0
+
+    def broken(*a, **k):
+        raise RuntimeError("counted nothing")
+
+    monkeypatch.setattr(dryrun, "count_step", broken)
+    assert dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k", "--mesh", "1",
+                        "--out", out]) == 1
+    capsys.readouterr()
+    assert roofline_md.main(["--dir", out]) == 0
+    text = capsys.readouterr().out
+    tables = text.split("### ")[1:]
+    assert [t.split(":")[0] for t in tables] == [
+        "Roofline on one H100", "Roofline on one device of the 16x16 mesh",
+        "Roofline on one device of the 2x16x16 mesh"]
+    rows = {m: [ln for ln in t.splitlines() if ln.startswith("| ") and "---" not in ln][1:]
+            for m, t in zip(dryrun.MESHES, tables)}
+    assert [r.split(" | ")[:4] for r in rows["1"]] == [
+        ["| dit-xl2", "prefill_32k", "int8", "2"], ["| qwen3-0.6b", "decode_32k", "-", "-"]]
+    assert "ERROR" in rows["1"][1] and "counted nothing" in rows["1"][1]
+    w8a8 = next(r for r in rows["16x16"] if r.startswith("| dit-xl2"))
+    cells = w8a8.split(" | ")
+    assert cells[2:4] == ["int8", "32"] and cells[8] in ("compute", "memory")
+    assert cells[-1] == "True |"
+    layout = next(r for r in rows["16x16"] if r.startswith("| qwen3-0.6b"))
+    assert "state, layouts only" in layout and dryrun.LAYOUT_ONLY in layout
+    assert len(rows["2x16x16"]) == 1 and "SKIP(full-attention)" in rows["2x16x16"][0]
+    assert roofline_md.main(["--dir", out, "--mesh", "2x16x16"]) == 0
+    assert capsys.readouterr().out.count("### ") == 1
+    assert roofline_md.main(["--dir", str(tmp_path / "none")]) == 1

@@ -1,6 +1,7 @@
-"""The reference's ``shard=`` in the port's LM steps, on the CPU: the sharded
-train, prefill and decode steps over DTensors against the unsharded ones
-and against the reference's sharded steps.
+"""The reference's ``shard=`` in the port's LM steps, and the diffusion
+family's steps on DTensors, on the CPU: the sharded train, prefill and
+decode steps, the float and W8A8 denoisers and the DiT train step against
+the unsharded ones and against the reference's sharded steps.
 
 * (a) the builders' default and ``make_shard_fn(rules, None)`` are the
   identity: every family's ``smoke()`` steps bit for bit;
@@ -11,12 +12,20 @@ and against the reference's sharded steps.
   the reference's sharded steps (``jax.make_mesh`` with ``Auto`` axes; its
   default ``Explicit`` axes refuse ``with_sharding_constraint``) within
   rtol = atol = 2e-4, the LM parity tolerance of ``tests/test_torch_lm.py``;
+  dit-xl2's float and W8A8 denoisers bit for bit, and within 1e-3 of the
+  output's scale of the reference's jitted
+  ``make_denoise_step`` on the same mesh (``tests/test_torch_dit_int8.py``'s
+  tolerance: a one-ulp difference in the glue can flip an int8 rounding);
 * (c) 2 and 4 gloo ranks in their own processes (``tests/_torch_shard_worker.py``),
   meshes (2, 1), (1, 2) and (2, 2): a train step with its update, a
   prefill and two decode steps of qwen3-0.6b, qwen2-moe-a2.7b (experts on
   'model') and qwen3-0.6b with ``fsdp=True, grad_accum=2`` (the microbatch
   and carry constraints), and on (1, 2) qwen3-0.6b with one kv head (the
-  decode cache split over its slots), against the unsharded steps. Bit for bit where the
+  decode cache split over its slots), and dit-xl2's float denoiser, W8A8
+  denoiser and train step (``with_noise``), against the unsharded steps.
+  The W8A8 denoiser's int8 operands and int32 products bit for bit, on
+  every mesh; its output and the float denoiser's keep the batch split
+  over 'data'. Bit for bit where the
   mesh splits rows only and no product's contraction or sum crosses ranks
   (each case names those outputs); everything else within rtol = atol =
   1e-5 in float32 (gradients and losses sum over the split batch, a split
@@ -24,7 +33,11 @@ and against the reference's sharded steps.
   rows in another order than one of four);
 * (d) the dry run's fake backend at (16, 16): a ``smoke()`` sharded train
   step's counted collectives include the gradient's reduction over 'data';
-  the fake group refuses to start while another group is up.
+  the fake group refuses to start while another group is up; the W8A8
+  denoiser's cell on both production meshes counts one rank's rows: its
+  ``int8_matmul`` work equals the one-card step's at the rank's batch, and
+  its only collectives are the activations' 4-byte max;
+* (e) a DTensor given to a kernel wrapper raises ``TypeError``.
 
 Inputs come from a numpy seed; the params from the port's init at seed 0
 (the reference gets the same arrays).
@@ -37,6 +50,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch.distributed.tensor import Shard  # noqa: E402
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import AxisType  # noqa: E402
@@ -47,6 +62,8 @@ from repro.launch import steps as rsteps  # noqa: E402
 from repro_torch import configs, tree  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.launch import dryrun, steps  # noqa: E402
+from repro_torch.kernels import diff_encode, ditto_diff_matmul, fused_step  # noqa: E402
+from repro_torch.kernels import int8_matmul  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.nn import moe  # noqa: E402
@@ -184,6 +201,59 @@ def test_one_rank_against_reference(name):
     assert {k for k in got if k != "train/state/rng"} == {k for k in want if k != "train/state/rng"}
 
 
+def _reference_denoisers(rarch, params, inputs) -> dict:
+    """The reference's float and W8A8 ``make_denoise_step`` jitted on a
+    (1, 1) Auto-axes mesh, as its dry run lays the cell out: params by
+    ``spec_for`` of ``param_axes`` (the W8A8 weights replicated), the batch
+    over 'data'; keyed as ``worker.run_diffusion`` keys the outputs."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro.models import dit_int8 as rq
+
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    rules = rsh.make_rules(rarch)
+    batch = {"latents": jnp.asarray(inputs["latents"].numpy()),
+             "t": jnp.asarray(inputs["t"].numpy()),
+             "labels": jnp.asarray(inputs["labels"].numpy().astype(np.int32))}
+    b_sh = {k: NamedSharding(mesh, PartitionSpec("data")) for k in batch}
+    rparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    out = {}
+    for int8, key in ((False, "denoise/out"), (True, "q8/out")):
+        axes, shapes = rsteps.param_axes(rarch, int8=int8)
+        p_sh = jax.tree.map(
+            lambda ax, sds: NamedSharding(mesh, rsh.spec_for(ax, sds.shape, rules, mesh)),
+            axes, shapes, is_leaf=lambda x: isinstance(x, tuple)
+            and all(isinstance(e, (str, type(None))) for e in x))
+        p = rq.quantize_params(rparams, rsteps.make_dit_model(rarch)) if int8 else rparams
+        out[key] = jax.jit(rsteps.make_denoise_step(rarch, int8=int8),
+                           in_shardings=(p_sh, b_sh))(p, batch)
+    return out
+
+
+def test_diffusion_one_rank_against_reference():
+    """dit-xl2's float and W8A8 denoisers on the one-rank (1, 1) gloo mesh:
+    bit for bit against the unsharded steps, the W8A8 products' operands and
+    results included, and within 1e-3 of the output's scale of the
+    reference's on its (1, 1) mesh (the train step: on the gloo ranks)."""
+    rarch = rconfigs.get(worker.DIT).smoke()
+    arch = configs.ArchConfig(**dataclasses.asdict(rarch))
+    state, inputs = worker.make_dit_state(arch), worker.make_dit_inputs(arch, B, SEED)
+    plain, _ = worker.run_diffusion(arch, state, inputs, train=False)
+    with mesh_mod.local_group("cpu"):
+        got, placements = worker.run_diffusion(arch, state, inputs, mesh_mod.make_test_mesh(),
+                                               train=False)
+    _assert_all_equal(got, plain)
+    assert placements["q8/out"][0] == placements["denoise/out"][0] == Shard(0)
+    n_products = 7 * arch.n_layers + 5
+    assert {k for k in got if k.startswith("q8/")} == {"q8/out"} | {
+        f"q8/{i}/{t}" for i in range(n_products) for t in ("xq", "y")}
+    for k, w in _reference_denoisers(rarch, state["params"], inputs).items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=1e-3 * np.abs(w).max(),
+                                   err_msg=k)
+
+
 # --------------------------------------------------------- (c) gloo ranks
 CASES = [("qwen3-0.6b", {}), ("qwen2-moe-a2.7b", {}),
          ("qwen3-0.6b", {"fsdp": True, "grad_accum": 2})]
@@ -199,6 +269,7 @@ EXACT = {("qwen3-0.6b", False): ("prefill/cache/", "decode/cache/"),
          ("qwen3-0.6b", True): ("prefill/cache/", "decode/cache/")}
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 EXTRA = {(1, 2): [SLOT_SPLIT]}
+DIFFUSION = (worker.DIT, {})
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -206,7 +277,7 @@ def test_gloo_ranks_sharded_steps(world, tmp_path):
     import torch.multiprocessing as mp
 
     cases = [(name, repl, shape) for shape in MESHES[world]
-             for name, repl in CASES + EXTRA.get(shape, [])]
+             for name, repl in CASES + EXTRA.get(shape, []) + [DIFFUSION]]
     job = dict(cases=cases, batch=B, seq=S, seed=SEED)
     ctx = mp.start_processes(worker.run, args=(world, str(tmp_path / "store"), str(tmp_path), job),
                              nprocs=world, join=False, start_method="spawn")
@@ -218,7 +289,24 @@ def test_gloo_ranks_sharded_steps(world, tmp_path):
             pytest.fail("gloo ranks did not finish in 120 s")
     got = torch.load(tmp_path / "out.pt")
     assert len(got) == len(cases)
+    arch = worker.make_arch(worker.DIT)
+    want, _ = worker.run_diffusion(arch, worker.make_dit_state(arch),
+                                   worker.make_dit_inputs(arch, B, SEED))
+    for shape in MESHES[world]:
+        res, placements = got[worker.DIT, shape]
+        assert res.keys() == want.keys()
+        for k in want:
+            if k.startswith("q8/") and k != "q8/out":  # int8 operands, int32 products
+                assert res[k].dtype == want[k].dtype and torch.equal(res[k], want[k]), (shape, k)
+            else:
+                np.testing.assert_allclose(res[k].numpy(), want[k].numpy(), rtol=RANK_TOL,
+                                           atol=RANK_TOL, err_msg=f"{worker.DIT} {shape} {k}")
+        if shape[0] > 1:  # the batch split over 'data' kept
+            for k in ("denoise/out", "q8/out"):
+                assert placements[k][0] == Shard(0), (shape, k, placements[k])
     for name, repl, shape in cases:
+        if (name, repl) == DIFFUSION:
+            continue
         arch = worker.make_arch(name, **repl)
         want = worker.run_steps(arch, worker.make_state(arch), worker.make_batch(arch, B, S, SEED))
         res = got[name, tuple(sorted(repl.items())), shape]
@@ -305,11 +393,51 @@ def test_worker_imports_neither_jax_nor_reference():
             assert name.split(".")[0] not in ("jax", "jaxlib", "repro", "flax"), name
 
 
-def test_w8a8_denoiser_stays_at_layout():
-    """The one production-mesh variant without a per-device program: its
-    record says why (ROADMAP item 16) and keeps the layouts' bytes."""
-    rec = dryrun.run_cell(configs.get("dit-xl2").smoke(), "prefill_32k", mesh="16x16",
-                          variant="int8", batch=2)
-    assert rec["status"] == "layout" and rec["reason"] == dryrun.NO_PROGRAM
-    assert rec["cost"] is rec["collectives"] is rec["roofline"] is None
-    assert rec["memory"]["param_bytes_per_device"] > 0
+@pytest.mark.parametrize("mesh,rank_batch", [("16x16", 2), ("2x16x16", 1)])
+def test_w8a8_denoiser_sharded_on_production_meshes(mesh, rank_batch):
+    """The W8A8 denoiser's cell at B = 32 on a production mesh is counted for
+    one rank: ``ok`` with a positive cost, one rank's ``int8_matmul`` calls,
+    FLOPs and bytes those of the one-card step at the rank's 32 / 16 or
+    32 / 32 rows, its int8 FLOPs at the int8 peak; the collectives are
+    the per-tensor scales' max, 4 bytes a product and batch axis (the
+    batch is never gathered)."""
+    arch = configs.get(worker.DIT).smoke()
+    rec = dryrun.run_cell(arch, "prefill_32k", mesh=mesh, variant="int8", batch=32)
+    assert rec["status"] == "ok" and rec["variant"] == "int8"
+    assert rec["cost"]["flops_per_device"] > 0 and rec["roofline"]["compute_s"] > 0
+    one = dryrun.count_step(arch, configs.SHAPES["prefill_32k"], variant="int8",
+                            batch=rank_batch)
+    assert rec["cost"]["kernels"] == one["kernels"]
+    assert rec["cost"]["kernels"]["int8_matmul"]["calls"] == 7 * arch.n_layers + 5
+    assert rec["cost"]["flops_by_dtype"]["int8"] == one["kernels"]["int8_matmul"]["flops"]
+    assert rec["layout"]["batch_shards"] == 32 // rank_batch
+    coll = rec["collectives"]["summary"]
+    n_axes = len(sharding.batch_axes(mesh_mod.make_production_mesh(
+        multi_pod=mesh == "2x16x16"), sharding.make_rules(arch, multi_pod=mesh == "2x16x16")))
+    assert set(coll["by_op"]) == {"all-reduce"}
+    assert coll["count"] == n_axes * (7 * arch.n_layers + 5)
+    assert coll["total_result_bytes"] == 4 * coll["count"]
+
+
+# ----------------------------------------------------- (e) kernel wrappers
+WRAPPERS = {
+    "int8_matmul": lambda x: int8_matmul.int8_matmul(x, x),
+    "diff_encode": lambda x: diff_encode.diff_encode(x, x),
+    "ditto_diff_matmul": lambda x: ditto_diff_matmul.ditto_diff_matmul(
+        x, x, x, None, torch.zeros((1, 1), dtype=torch.int32)),
+    "diff_encode_fused": lambda x: fused_step.diff_encode_fused(x, x),
+    "ditto_fused_matmul": lambda x: fused_step.ditto_fused_matmul(
+        x, x[:, :64], x, torch.zeros((1, 1), dtype=torch.int32)),
+}
+
+
+@pytest.mark.parametrize("name", list(WRAPPERS))
+def test_kernel_wrapper_refuses_a_dtensor(name):
+    """A DTensor reaches no kernel and no plain version: the wrapper raises
+    ``TypeError`` and names ``sharding.row_local``."""
+    x = torch.ones((128, 128), dtype=torch.int8)
+    with mesh_mod.local_group("cpu"):
+        dx = sharding.layout(x, sharding.replicated(mesh_mod.make_test_mesh()))
+        with pytest.raises(TypeError, match="row_local"):
+            WRAPPERS[name](dx)
+    WRAPPERS[name](x)  # a plain tensor takes the plain version
