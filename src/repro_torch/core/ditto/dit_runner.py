@@ -41,6 +41,7 @@ from ...kernels.diff_encode import diff_encode
 from ...kernels.common import DEFAULT_LOW_BITS, LOW_BIT_MAX, pad2, resolve_device
 from ...nn import core as nncore
 from ...nn import dit as dit_mod
+from ... import spans
 from . import compiled as compiled_mod
 from . import defo
 from .compiled import CompiledDittoEngine
@@ -462,7 +463,9 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
     ``plan.compiled=True``: once the engine is calibrated, the remaining
     steps run through the kernels, seeded with the eager pass's temporal
     state; a new compiled runner is built per sample (begin_sample resets
-    state and Defo may re-decide modes). ``device`` (default: the card)
+    state and Defo may re-decide modes). Each eager step, its
+    ``engine.end_step()`` included, is a ``ditto.eager_step`` span
+    (:mod:`repro_torch.spans`). ``device`` (default: the card)
     must be the engine's device. On the card a plan whose ``block`` is not
     128 raises ``ValueError`` here, before any eager step
     (:func:`~repro_torch.core.ditto.plan.check_device_block`).
@@ -604,7 +607,10 @@ def make_denoise_fn(params, cfg: dit_mod.DiTCfg, engine: DittoEngine,
             else:
                 out = box["runner"](x, t, labels)
         else:
-            out = runner(x, t, labels)
+            with spans.span("ditto.eager_step", step=engine.step_idx):
+                out = runner(x, t, labels)
+                engine.end_step()
+            return out
         engine.end_step()
         return out
 

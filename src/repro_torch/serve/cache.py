@@ -74,6 +74,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import spans
 from ..core.ditto import dit_runner
 from ..core.ditto.dit_runner import DittoDiT
 from ..core.ditto.compiled import CompiledDittoEngine
@@ -367,7 +368,9 @@ class CompiledRunnerCache:
     # ------------------------------------------------------------ replay
     def _run(self, runner: _Runner, dparams, mparams, state, latents, t, labels):
         """Load the step's inputs into its bucket's arena and run the step
-        there: a graph replay on the card, the step itself on the CPU."""
+        there: a graph replay on the card (a ``ditto.replay`` span from the
+        load to the outputs' clones, a first call's ``ditto.capture``
+        inside it), the step itself on the CPU."""
         with self._lock:
             self._check_params(mparams)
             _same_device("latents", latents, self.device)
@@ -377,23 +380,25 @@ class CompiledRunnerCache:
             if arena is None:
                 arena = self._arenas[akey] = _Arena(self._bound[2], dparams, state,
                                                     latents, t)
-            arena.load(dparams, state, latents, t, labels)
             has_labels = labels is not None
             if latents.device.type != "cuda":
+                arena.load(dparams, state, latents, t, labels)
                 if has_labels not in runner.graphs:
                     runner.graphs[has_labels] = None
                     self._count_capture(runner.key)
                 out, _, aux = runner.step(*self._args(arena, mparams, has_labels))
                 return out, arena.holder, aux
-            g = runner.graphs.get(has_labels)
-            if g is None:
-                g = runner.graphs[has_labels] = self._capture(runner, arena, mparams,
-                                                              has_labels)
-            g.graph.replay()
-            self.replays[runner.key] = self.replays.get(runner.key, 0) + 1
-            out = g.out.clone()
-            aux = _unflat_aux(None if g.flat is None else g.flat.clone(), g.keys)
-            return out, arena.holder, aux
+            with spans.span("ditto.replay", bucket=akey[1]):
+                arena.load(dparams, state, latents, t, labels)
+                g = runner.graphs.get(has_labels)
+                if g is None:
+                    g = runner.graphs[has_labels] = self._capture(runner, arena, mparams,
+                                                                  has_labels)
+                g.graph.replay()
+                self.replays[runner.key] = self.replays.get(runner.key, 0) + 1
+                out = g.out.clone()
+                aux = _unflat_aux(None if g.flat is None else g.flat.clone(), g.keys)
+                return out, arena.holder, aux
 
     @staticmethod
     def _args(arena: _Arena, mparams, has_labels: bool) -> tuple:
@@ -406,7 +411,7 @@ class CompiledRunnerCache:
         launch counters see this capture's launches alone). The warm step
         writes the arena's state in place, so it runs on a copy of the
         state that is put back before the capture."""
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, spans.span("ditto.capture", bucket=arena.latents.shape[0]):
             return self._capture_locked(runner, arena, mparams, has_labels)
 
     def _capture_locked(self, runner: _Runner, arena: _Arena, mparams,

@@ -85,6 +85,12 @@ one after another).
 Completed tickets RETIRE to counters; ``retain=True`` keeps the full
 ``tickets`` / ``dispatches`` / ``Ticket.results`` record (every
 ServeResult stays live for the scheduler's lifetime).
+
+Spans (:mod:`repro_torch.spans`, on ``time.monotonic()``, never on
+``clock``): ``sched.wait`` around a dispatch thread's wait for work,
+``sched.dispatch`` over each dispatch, ``sched.deliver`` over its
+delivery, and one ``ticket.queue`` a ticket, from its submit to the take
+of its first rows, carrying the id of the dispatch that took them.
 """
 from __future__ import annotations
 
@@ -97,6 +103,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import spans
 from ..core import diffusion
 from ..core.ditto import DittoEngine, make_denoise_fn
 from ..core.ditto.plan import UNSET, DittoPlan, PlanSchedule, is_unset, segment_view
@@ -147,6 +154,9 @@ class Ticket:
         self.plan = plan  # normalized plan/schedule this request runs under
         self.deadline_ms = deadline_ms  # latency budget; None = no SLO
         self.submit_t = submit_t  # scheduler-clock time of submit()
+        # the spans' clock: submit() and the first take (a ticket.queue span)
+        self._submit_mono = time.monotonic()
+        self._taken_mono: float | None = None
         self.done_t: float | None = None  # scheduler-clock time of completion
         # absolute budget expiry on the scheduler clock
         self._deadline_t = None if deadline_ms is None else submit_t + deadline_ms / 1e3
@@ -722,7 +732,8 @@ class ServeScheduler:
                     job = self._next_job_locked(shard)
                     if job is not None:
                         break
-                    self._cv.wait(self._next_wakeup_locked())
+                    with spans.span("sched.wait", shard=shard):
+                        self._cv.wait(self._next_wakeup_locked())
                 group, rows, trigger = job
                 try:
                     batch = self._take_locked(group, rows)
@@ -793,7 +804,10 @@ class ServeScheduler:
             self._cv.notify_all()
             raise _TakeFailed(str(exc)) from exc
         segments = []
+        taken = time.monotonic()
         for p, c in plan_items:
+            if p.used == 0:
+                p.ticket._taken_mono = taken
             segments.append((p.ticket, p.used, c))
             p.used += c
         while group.pending and not group.pending[0].remaining:
@@ -802,6 +816,21 @@ class ServeScheduler:
 
     def _serve_and_deliver(self, group: _Group, batch, trigger: str,
                            shard: int | None = None) -> ServeResult | None:
+        """One dispatch: a ``sched.dispatch`` span over :meth:`_serve_batch`,
+        and a ``ticket.queue`` span, from its submit to this take, of each
+        ticket whose first rows the batch took, naming the dispatch."""
+        x, _, segments = batch
+        shard = group.shard if shard is None else shard
+        with spans.span("sched.dispatch", trigger=trigger, rows=x.shape[0], shard=shard,
+                        tickets=[t.index for t, _, _ in segments]) as sp:
+            for ticket, dst, _ in segments:
+                if dst == 0:
+                    spans.record("ticket.queue", ticket._submit_mono, ticket._taken_mono,
+                                 ticket=ticket.index, dispatch=sp.id)
+            return self._serve_batch(group, batch, trigger, shard)
+
+    def _serve_batch(self, group: _Group, batch, trigger: str,
+                     shard: int) -> ServeResult | None:
         """Serve one taken batch (outside the lock: submissions go on while
         the card runs) and deliver each covered ticket its rows. ``shard``
         is the SERVING shard: the thief's own on a stolen job, the group's
@@ -820,7 +849,6 @@ class ServeScheduler:
         capture or replay error fails the tickets at once. Nothing serves
         elsewhere quietly."""
         x, labels, segments = batch
-        shard = group.shard if shard is None else shard
         session = self._sessions[shard] if shard < len(self._sessions) else self.session
         plan = group.plan
         ladder = (plan,) + tuple(plan.fallback_plans() if hasattr(plan, "fallback_plans")
@@ -867,7 +895,7 @@ class ServeScheduler:
         stream = (stream_of(result.sample.device)
                   if stream_of is not None and result.sample.is_cuda else None)
         now = self._clock()
-        with self._cv:
+        with spans.span("sched.deliver"), self._cv:
             self._n_dispatches += 1
             self._dispatched_rows += x.shape[0]
             self._pad_rows += result.pad_rows

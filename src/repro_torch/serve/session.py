@@ -15,6 +15,9 @@ is one request batch; the session
      (modes, ``plan.cache_sig()``, bucket), replayed every step — and
   4. slices the sample back to the true batch.
 
+A chunk is a ``session.chunk`` span (:mod:`repro_torch.spans`), and the
+wait for its streams at its end a ``session.sync`` span inside it.
+
 The params move to the session's device once, at construction: the
 captured graphs read them by address. ``serve(..., plan=...)`` overrides
 the session plan for one request and shares the session's cache.
@@ -41,6 +44,7 @@ from typing import Any
 
 import torch
 
+from .. import spans
 from ..core.ditto.dit_runner import RowGroup
 from ..core.ditto.plan import DittoPlan, PlanSchedule, check_device_block
 from ..kernels.common import resolve_device
@@ -190,6 +194,7 @@ class ServeSession:
         bucket = bucket_for(b, max_batch=plan.max_batch) if plan.compiled else None
         callers = {d: torch.cuda.current_stream(d) for d in self._streams}
         with contextlib.ExitStack() as stack:
+            stack.enter_context(spans.span("session.chunk", bucket=bucket, rows=b))
             for c in self.caches:
                 stack.enter_context(c.sample_lock)
             frames = [stack.enter_context(c.attribution()) for c in self.caches]
@@ -199,8 +204,9 @@ class ServeSession:
                     self.params, self.cfg, self.sched, x, labels, plan,
                     runner_cache=self.cache, bucket=bucket, device=self.device,
                     mesh=self._groups)
-            for s in self._streams.values():  # this chunk's work, not the card's
-                s.synchronize()
+            with spans.span("session.sync"):
+                for s in self._streams.values():  # this chunk's work, not the card's
+                    s.synchronize()
             wall = time.perf_counter() - t0
         if self._streams:
             sample.record_stream(callers[sample.device])  # the caller reads it there
