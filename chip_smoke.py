@@ -25,7 +25,13 @@ Phases (any failure raises and the script exits non-zero):
              against W of -128 and of 127, the largest |int32| sums). All
              four GEMMs also run with K forced to every split count 1-8 at
              wd's shape (the difference GEMMs over the full and sparse
-             mixes, ``int8_matmul`` over its three).
+             mixes, ``int8_matmul`` over its three). The int8 boundary's
+             ``quantize_rows`` and ``dequantize_rows`` run at every call of
+             a compiled step at the cells' buckets (16 x 256 and 4 x 1024
+             tokens) and the slice's (2 x 256): x with ties k + 0.5,
+             clamped values, +-inf, +-1e30 and NaN, P V's b operand read
+             transposed in place; y with padded rows and columns read in
+             place, with a bias and without.
 3. slice   — ``serve_records`` at DiT-XL/2 full width (random weights from
              a seed), 2 requests, 20 DDIM steps, under policy act, diff and
              defo, then under (diff, ``low_bits=4``), (diff, ``fused``) and
@@ -81,7 +87,7 @@ Phases (any failure raises and the script exits non-zero):
              eager rung, bit-identical to the fault-free rows; a
              ``scheduler.take`` fault fails exactly its ticket and the
              thread serves on; a seeded chaos run ends every ticket
-             within its timeout. Each of the six kernels must have run
+             within its timeout. Each of the eight kernels must have run
              from a replayed graph of the phase. It prints one
              ``scheduler: {...}`` line (dispatches, triggers, pad rows,
              deadline misses, latencies, captures, the warmup wall).
@@ -104,8 +110,9 @@ Phases (any failure raises and the script exits non-zero):
              (e) ``dp=2`` with ``plan.watchdog`` (statistics on, a ``drift``
              fault armed): the sample, ``watchdog_events`` and records
              equal the unsplit session's;
-             ``int8_matmul``, ``diff_encode`` and both ``ditto_diff_matmul``
-             branches must launch from the shards' replayed graphs, and
+             ``int8_matmul``, ``diff_encode``, both ``ditto_diff_matmul``
+             branches and the int8 boundary's two kernels must launch from
+             the shards' replayed graphs, and
              both stealing shards must replay diff steps. It prints the
              2-shard and 1-shard walls of the same warm stream and the
              median dispatch wall of each (one host drives both shards),
@@ -286,7 +293,13 @@ Phases (any failure raises and the script exits non-zero):
              where one PyTorch call computes the same function, that call
              (``torch._int_mm`` for a 2-D ``int8_matmul``, timed on W both
              as a (K, N) contiguous copy and as the transposed view of the
-             K-major weight; ``library_ms`` is the faster).
+             K-major weight; ``library_ms`` is the faster). The int8
+             boundary's two kernels also run at every call of the cells'
+             steps (16 x 256 and 4 x 1024 tokens), each timed after the
+             L2 is written (``ms``, as every row) and after it is read
+             (``ms_clean_l2``: no dirty lines to write back), beside the
+             bytes it must move over 3.35 TB/s and its plain chain; the
+             kernels line gives them at the 256 px cell's (4096, 4608).
 
 The last lines are the ``scheduler: {...}``, ``mesh: {...}``,
 ``training: {...}``, ``lm: {...}``, ``lm_train: {...}``, ``moe: {...}``,
@@ -322,6 +335,7 @@ from repro_torch import configs, tree  # noqa: E402
 from repro_torch.analysis import trace_audit  # noqa: E402
 from repro_torch.core import diffusion  # noqa: E402
 from repro_torch.core.ditto import DittoPlan, PlanSchedule, dit_runner  # noqa: E402
+from repro_torch.core.ditto import compiled as ditto_compiled  # noqa: E402
 from repro_torch.data.synthetic import DataCfg, batch_for  # noqa: E402
 from repro_torch.distributed import collectives, pipeline, sharding  # noqa: E402
 from repro_torch.kernels import common, ops, ref  # noqa: E402
@@ -329,6 +343,7 @@ from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
+from repro_torch.kernels import quant_rows as k_quant  # noqa: E402
 from repro_torch.launch import dryrun, op_analysis, roofline  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
@@ -347,8 +362,8 @@ DEVICE = "cuda"
 CFG = dit.DIT_XL2
 
 DIFF4 = "ditto_diff_matmul[low_bits=4]"
-# name -> the module and attribute of its launch count, its source, the TPU
-# kernel it replaces and the wrapper that launches it
+# name -> the module and attribute of its launch count, its source and the
+# TPU kernel it replaces ("none": the reference leaves that work to XLA)
 KERNELS = {
     "int8_matmul": dict(module=k_int8, counter="launches",
                         source="src/repro_torch/csrc/int8_matmul.cu",
@@ -368,11 +383,18 @@ KERNELS = {
     "ditto_fused_matmul": dict(module=k_fused, counter="matmul_launches",
                                source="src/repro_torch/csrc/ditto_fused_matmul.cu",
                                replaces="src/repro/kernels/fused_step.py:312"),
+    "quantize_rows": dict(module=k_quant, counter="quantize_launches",
+                          source="src/repro_torch/csrc/quant_rows.cu", replaces="none"),
+    "dequantize_rows": dict(module=k_quant, counter="dequantize_launches",
+                            source="src/repro_torch/csrc/quant_rows.cu", replaces="none"),
 }
+# the int8 boundary of the compiled step, called from core/ditto/compiled.py
+BOUNDARY = ("quantize_rows", "dequantize_rows")
 # the slice run whose compiled steps launch each kernel on every layer of its kind
 STEP_RUN = {"int8_matmul": "act", "diff_encode": "diff", "ditto_diff_matmul": "diff",
             DIFF4: "diff low_bits=4", "diff_encode_fused": "diff fused=True",
-            "ditto_fused_matmul": "diff fused=True"}
+            "ditto_fused_matmul": "diff fused=True", "quantize_rows": "diff",
+            "dequantize_rows": "diff"}
 # the argument that carries y_prev, per GEMM wrapper
 Y_PREV_AT = {"ditto_diff_matmul": 3, DIFF4: 3, "ditto_fused_matmul": 4}
 
@@ -514,7 +536,8 @@ def phase_parity() -> dict:
         torch.cuda.synchronize()
         if got.shape != want.shape:
             raise AssertionError(f"{name}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
-        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item() if got.numel() else 0
+        wide = torch.float64 if got.is_floating_point() else torch.int64
+        err = (got.to(wide) - want.to(wide)).abs().max().item() if got.numel() else 0
         max_err[name] = max(max_err[name], err)
         if not torch.equal(got, want):
             raise AssertionError(f"{name} disagrees with its plain version (max |err| {err})")
@@ -594,8 +617,83 @@ def phase_parity() -> dict:
                 hold("ditto_fused_matmul",
                      k_fused.launch_matmul(w, dc, dh, cls_f, yp, splits), want)
     say(f"parity ok  forced K splits 1..{MAX_SPLITS} lead={lead} M={m} K={k} N={n}")
+    boundary_parity(g, hold)
     say(f"parity: {checks} checks bit-exact, max |err| {max_err}")
     return max_err
+
+
+def boundary_shapes(samples: int, tokens: int) -> tuple[dict, dict]:
+    """The int8 boundary's calls in a compiled DiT-XL/2 step at ``samples``
+    rows of ``tokens`` tokens (d 1152, MLP 4608, mod 6912, 16 heads of 72,
+    16 outputs a token). Quantise: name -> (x shape, scale shape,
+    transposed), x read as the transpose of a contiguous tensor where
+    ``transposed`` (P V's b operand, V^T). Dequantise: name -> (y shape,
+    padded width or None, s_row shape, s_col shape, bias): a padded y is the
+    slice of a GEMM result whose rows and columns are padded to it."""
+    t, bh = samples * tokens, samples * 16
+    quants = {"mod x": ((samples, 1152), (samples, 1), False),
+              "wq/wk/wv/wo/wi/final.out x": ((t, 1152), (t, 1), False),
+              "wd x": ((t, 4608), (t, 1), False),
+              "qk a/b": ((bh, tokens, 72), (bh, 1, 1), False),
+              "pv a": ((bh, tokens, tokens), (bh, 1, 1), False),
+              "pv b": ((bh, 72, tokens), (bh, 1, 1), True)}
+    dequants = {"mod y": ((samples, 6912), None, (samples, 1), (1, 6912), True),
+                "wq/wk/wv/wo/wd y": ((t, 1152), None, (t, 1), (1, 1152), True),
+                "wi y": ((t, 4608), None, (t, 1), (1, 4608), True),
+                "final.out y": ((t, 16), 128, (t, 1), (1, 16), True),
+                "qk y": ((bh, tokens, tokens), None, (bh, 1, 1), (bh, 1, 1), False),
+                "pv y": ((bh, tokens, 72), 128, (bh, 1, 1), (bh, 1, 1), False)}
+    return quants, dequants
+
+
+# (samples, tokens): the cells' buckets (256 px at 16, 512 px at 4) and the slice's
+BOUNDARY_SIZES = ((16, 256), (4, 1024), (B, 256))
+
+
+def quant_operand(g, shape, sshape, transposed):
+    """(x, scale) on the card: scales in [1e-3, 0.051), x ~ 50 scales wide,
+    its first (up to) 4096 elements ties k + 0.5 (k in [-130, 130), so some
+    clamp; exact in the first scale group), then inf, -inf, 1e30, -1e30
+    and NaN; x transposed in place of
+    a contiguous (..., W, R) tensor where ``transposed``."""
+    s = torch.rand(sshape, generator=g, device=DEVICE) * 0.05 + 1e-3
+    stored = shape[:-2] + shape[:-3:-1] if transposed else shape
+    x = torch.randn(stored, generator=g, device=DEVICE)
+    x = (x.mT if transposed else x).mul_(50 * s)
+    flat = x.view(-1) if not transposed else x.mT.reshape(-1)
+    k = min(4096, flat.numel() - 5)
+    flat[:k] = (torch.randint(-130, 130, (k,), generator=g, device=DEVICE) + 0.5) \
+        * s.reshape(-1)[0]
+    flat[k:k + 5] = torch.tensor([float("inf"), -float("inf"), 1e30, -1e30, float("nan")])
+    return x, s
+
+
+def dequant_operands(g, shape, padded, rs, cs, with_bias):
+    """(y, s_row, s_col, bias) on the card; y int32 in [-2^27, 2^27), the
+    slice of a padded tensor where ``padded``."""
+    full = shape[:-2] + ((-(-shape[-2] // padded) * padded, padded) if padded else shape[-2:])
+    y = torch.randint(-2**27, 2**27, full, generator=g, device=DEVICE, dtype=torch.int32)
+    y = y[..., :shape[-2], :shape[-1]]
+    s_row = torch.rand(rs, generator=g, device=DEVICE) * 1e-3
+    s_col = torch.rand(cs, generator=g, device=DEVICE) * 1e-2
+    bias = torch.randn(shape[-1], generator=g, device=DEVICE) if with_bias else None
+    return y, s_row, s_col, bias
+
+
+def boundary_parity(g, hold) -> None:
+    """Both boundary kernels against their plain versions at every call
+    of the cells' and the slice's steps."""
+    for samples, tokens in BOUNDARY_SIZES:
+        quants, dequants = boundary_shapes(samples, tokens)
+        for shape, sshape, transposed in quants.values():
+            x, s = quant_operand(g, shape, sshape, transposed)
+            hold("quantize_rows", k_quant.quantize_rows(x, s), ref.quantize_rows_ref(x, s))
+        for args in dequants.values():
+            y, s_row, s_col, bias = dequant_operands(g, *args)
+            hold("dequantize_rows", k_quant.dequantize_rows(y, s_row, s_col, bias),
+                 ref.dequantize_rows_ref(y, s_row, s_col, bias))
+        say(f"parity ok  int8 boundary at {samples} x {tokens} tokens: "
+            f"{len(quants)} quantise and {len(dequants)} dequantise shapes")
 
 
 # ------------------------------------------------------------------- slice
@@ -609,7 +707,9 @@ class Capture:
     the times phase runs every kernel on the inputs the main path gave it
     (a diff GEMM call with ``low_bits=4`` counts as its own kernel). It also wraps
     the two ``ops`` functions the compiled pass calls, to note each call's
-    (M, K, N) before ``ops`` pads it to the 128-tile grid."""
+    (M, K, N) before ``ops`` pads it to the 128-tile grid, and the int8
+    boundary's wrappers where the compiled pass calls them, keyed by their
+    operands' shapes and layout."""
 
     def __init__(self):
         self.calls: dict = {}
@@ -617,8 +717,11 @@ class Capture:
         self.unpadded = None
         self.orig = {name: getattr(ops, name) for name in WRAPPERS}
         self.orig_ops = (ops.int8_act_matmul, ops.ditto_linear_step)
+        self.orig_boundary = {name: getattr(ditto_compiled, name) for name in BOUNDARY}
         for name, fn in self.orig.items():
             setattr(ops, name, self._wrap(name, fn))
+        for name, fn in self.orig_boundary.items():
+            setattr(ditto_compiled, name, self._wrap_boundary(name, fn))
         ops.int8_act_matmul = self._note_unpadded(self.orig_ops[0], w_at=1)
         ops.ditto_linear_step = self._note_unpadded(self.orig_ops[1], w_at=2)
 
@@ -640,9 +743,24 @@ class Capture:
             return fn(*args, **kw)
         return wrapped
 
+    def _wrap_boundary(self, name, fn):
+        def wrapped(*args):
+            x = args[0]
+            layout = ("contiguous" if x.is_contiguous() else
+                      "transposed" if x.mT.is_contiguous() else "strided rows")
+            if name == "dequantize_rows" and len(args) > 3 and args[3] is not None:
+                layout += ", bias"
+            key = (name, tuple(tuple(a.shape) for a in args[:3]), None, False, layout)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.last[key] = (args, {})
+            return fn(*args)
+        return wrapped
+
     def close(self):
         for name, fn in self.orig.items():
             setattr(ops, name, fn)
+        for name, fn in self.orig_boundary.items():
+            setattr(ditto_compiled, name, fn)
         ops.int8_act_matmul, ops.ditto_linear_step = self.orig_ops
 
 
@@ -674,8 +792,11 @@ def step_calls(calls_after: dict, calls_before: dict, n_compiled: int) -> dict:
     out = {key: (c - calls_before.get(key, 0)) / n_compiled
            for key, c in calls_after.items() if c != calls_before.get(key, 0)}
     for key, c in sorted(out.items(), key=str):
-        say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} y_prev={key[2]} "
-            f"w_transposed={key[3]} unpadded (M, K, N) {key[4]}")
+        if key[0] in BOUNDARY:
+            say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} {key[4]}")
+        else:
+            say(f"  per compiled step: {c:g} x {key[0]} args {key[1]} y_prev={key[2]} "
+                f"w_transposed={key[3]} unpadded (M, K, N) {key[4]}")
     return out
 
 
@@ -780,12 +901,13 @@ def phase_slice(cap: Capture, params, x_T, labels, sched) -> tuple[dict, dict, d
 SERVE_ROWS = (1, 3, 2, 4)  # buckets 1, 4, 2, 4; the 2-row request is the slice's
 WATCHDOG_ROWS = (3, 2)
 # the kernels each serving run must launch from its replayed graphs
-RUN_KERNELS = {"diff": ("diff_encode", "ditto_diff_matmul"),
-               "diff no stats": ("diff_encode", "ditto_diff_matmul"),
+RUN_KERNELS = {"diff": ("diff_encode", "ditto_diff_matmul") + BOUNDARY,
+               "diff no stats": ("diff_encode", "ditto_diff_matmul") + BOUNDARY,
                "schedule": ("diff_encode", "ditto_diff_matmul", DIFF4, "diff_encode_fused",
-                            "ditto_fused_matmul"),
-               "watchdog drift": ("diff_encode", "ditto_diff_matmul", "int8_matmul"),
-               "watchdog poison": ("diff_encode", "ditto_diff_matmul", "int8_matmul")}
+                            "ditto_fused_matmul") + BOUNDARY,
+               "watchdog drift": ("diff_encode", "ditto_diff_matmul", "int8_matmul") + BOUNDARY,
+               "watchdog poison": ("diff_encode", "ditto_diff_matmul", "int8_matmul")
+               + BOUNDARY}
 WATCHDOG_STEPS = 10  # the watchdog runs are held to uncached runs with statistics
 # the faults of the watchdog runs, at a denoise.step arrival (compiled step)
 DRIFT = Fault("denoise.step", 3, "drift", value=64.0)
@@ -1268,7 +1390,7 @@ def phase_scheduler(params, sched) -> dict:
 # ------------------------------------------------------------------- mesh
 MESH_STEPS = 10
 MESH_BUCKETS = 6  # async stealing: 6 full buckets of 4 rows, one group
-MESH_KERNELS = ("int8_matmul", "diff_encode", "ditto_diff_matmul", DIFF4)
+MESH_KERNELS = ("int8_matmul", "diff_encode", "ditto_diff_matmul", DIFF4) + BOUNDARY
 
 
 def mesh_devices() -> tuple:
@@ -3627,12 +3749,15 @@ def phase_analysis(params, x_T, labels, sched) -> dict:
 
 
 # ------------------------------------------------------------------- times
-def median_ms(fn, flush, reps=30, warm=3) -> float:
+def median_ms(fn, flush, reps=30, warm=3, clean=False) -> float:
+    """CUDA events around one call of ``fn`` after ``flush`` is written
+    (the L2 left full of dirty lines, which the call writes back as it
+    evicts them: up to 50 MB more traffic) or, ``clean``, read; median."""
     for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum() if clean else flush.zero_()
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -3649,6 +3774,8 @@ def work(name, args, unpadded) -> tuple[float, float]:
     tiles, at their unpadded extent, and the weight rows they meet; the
     fused pair counts the Δ-cache planes on the tiles whose class gates
     them in (``dc``, half a byte a Δ: class >= 1; ``dh``: class 2)."""
+    if name in BOUNDARY:
+        return 0.0, float(boundary_bytes(name, args))
     m, k, n = unpadded
     x = args[2] if name == "ditto_fused_matmul" else args[0]
     bat = x.numel() // (x.shape[-2] * x.shape[-1])
@@ -3676,6 +3803,13 @@ def work(name, args, unpadded) -> tuple[float, float]:
     return 2.0 * x_elems * n, float(nbytes)
 
 
+def boundary_bytes(name, args) -> int:
+    """Bytes a boundary call must move: x read (4 an element) and q written
+    (1), or y read (4) and the result written (4); and its scales and bias."""
+    small = sum(a.numel() for a in args[1:] if a is not None)
+    return (5 if name == "quantize_rows" else 8) * args[0].numel() + 4 * small
+
+
 def tile_elems(pred: torch.Tensor, m: int, k: int) -> int:
     """Elements of the tiles where ``pred`` holds, at their unpadded extent."""
     rows = (m - 128 * torch.arange(pred.shape[-2], device=pred.device)).clamp(0, 128)
@@ -3685,6 +3819,10 @@ def tile_elems(pred: torch.Tensor, m: int, k: int) -> int:
 
 def plain(name, args, kw):
     wt = kw.get("w_transposed", False)
+    if name == "quantize_rows":
+        return lambda: ref.quantize_rows_ref(*args)
+    if name == "dequantize_rows":
+        return lambda: ref.dequantize_rows_ref(*args)
     if name == "int8_matmul":
         return lambda: ref.int8_matmul_ref(*args[:2], w_transposed=wt)
     if name == "diff_encode":
@@ -3705,7 +3843,7 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
     # ~0.3 ms, longer than the host takes to enqueue the timed launch, so
     # the events time the kernel and not the host's launch latency
     flush = torch.empty(2**30, dtype=torch.uint8, device=DEVICE)
-    real = dict(cap.orig, **{DIFF4: cap.orig["ditto_diff_matmul"]})
+    real = dict(cap.orig, **cap.orig_boundary, **{DIFF4: cap.orig["ditto_diff_matmul"]})
     rows = []
     bounds = {}
     for key, (args, kw) in sorted(cap.last.items(), key=str):
@@ -3713,7 +3851,8 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
         ops_n, nbytes = work(name, args, key[4])
         t_ops, t_bytes = ops_n / roofline.PEAK_FLOPS_INT8 * 1e3, nbytes / roofline.HBM_BW * 1e3
         row = dict(name=name, args=[list(a.shape) if a is not None else None for a in args[:3]],
-                   unpadded_mkn=list(key[4]), y_prev=key[2], w_transposed=key[3],
+                   unpadded_mkn=None if name in BOUNDARY else list(key[4]), y_prev=key[2],
+                   w_transposed=key[3],
                    ms=median_ms(lambda: real[name](*args, **kw), flush),
                    plain_ms=median_ms(plain(name, args, kw), flush, reps=20),
                    bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -3728,10 +3867,43 @@ def phase_times(cap: Capture) -> tuple[list[dict], dict]:
             row["library_ms_kn_copy"] = median_ms(lambda: torch._int_mm(x, w_kn), flush)
             row["library_ms_nk_view"] = median_ms(lambda: torch._int_mm(x, w_nk.t()), flush)
             row["library_ms"] = min(row["library_ms_kn_copy"], row["library_ms_nk_view"])
+        if name in BOUNDARY:
+            row["layout"] = key[4]
         rows.append(row)
         bounds[key] = row["bound_ms"]
         say("time " + json.dumps(row))
-    return rows, bounds
+    return rows + boundary_times(flush), bounds
+
+
+def boundary_times(flush) -> list[dict]:
+    """The boundary kernels at every call of the cells' steps (16 x 256 and
+    4 x 1024 tokens), each beside its byte bound and its plain chain, timed
+    after the L2 is written (``ms``, as every other row) and after it is
+    read (``ms_clean_l2``)."""
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    rows = []
+    for samples, tokens in BOUNDARY_SIZES[:2]:
+        quants, dequants = boundary_shapes(samples, tokens)
+        calls = [("quantize_rows", call, quant_operand(g, *args))
+                 for call, args in quants.items()]
+        calls += [("dequantize_rows", call, dequant_operands(g, *args))
+                  for call, args in dequants.items()]
+        for name, call, args in calls:
+            fn = (lambda a=args: k_quant.quantize_rows(*a)) if name == "quantize_rows" else \
+                (lambda a=args: k_quant.dequantize_rows(*a))
+            bound_ms = boundary_bytes(name, args) / roofline.HBM_BW * 1e3
+            ms = median_ms(fn, flush)
+            row = dict(name=name, call=call, cell=f"{samples} x {tokens} tokens",
+                       args=[list(a.shape) for a in args[:3]], ms=ms,
+                       ms_clean_l2=median_ms(fn, flush, clean=True),
+                       plain_ms=median_ms(plain(name, args, {}), flush, reps=20),
+                       bound_ms=bound_ms, bound_by="bytes", bound_share=bound_ms / ms,
+                       library_ms=None)
+            row["clean_bound_share"] = bound_ms / row["ms_clean_l2"]
+            rows.append(row)
+            say("time " + json.dumps(row))
+        del calls
+    return rows
 
 
 # -------------------------------------------------------------------- main
@@ -3772,16 +3944,23 @@ def main() -> int:
     say(f"bound per compiled step (ms): {json.dumps(step_bound)}")
 
     # the kernels line reports each kernel at the MLP up-projection (wi):
-    # x (512, 1152) against W (1152, 4608), the path's largest linear
+    # x (512, 1152) against W (1152, 4608), the path's largest linear; the
+    # boundary at the 256 px cell's (4096, 4608) (wd's x, wi's y)
     kernels = []
     for name, k in KERNELS.items():
-        pick = next(r for r in rows
-                    if r["name"] == name and r["unpadded_mkn"] == [512, 1152, 4608])
+        if name in BOUNDARY:
+            pick = next(r for r in rows if r["name"] == name and r.get("cell") ==
+                        "16 x 256 tokens" and r["args"][0] == [4096, 4608])
+        else:
+            pick = next(r for r in rows if r["name"] == name
+                        and r.get("unpadded_mkn") == [512, 1152, 4608])
         kernels.append(dict(name=name, route="cuda", source=k["source"], replaces=k["replaces"],
                             launches=totals[name], max_abs_err=max_err[name], ms=pick["ms"],
                             plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
                             bound_by=pick["bound_by"], library_ms=pick["library_ms"],
                             shape=pick["args"]))
+        if name in BOUNDARY:
+            kernels[-1]["ms_clean_l2"] = pick["ms_clean_l2"]
     say(f"slice walls: {json.dumps(walls)}")
     say(f"serving: {json.dumps(serving)}")
     say(f"total {time.perf_counter() - t0:.1f} s")

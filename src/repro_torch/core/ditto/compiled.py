@@ -15,6 +15,11 @@ run through the kernels:
         the same int32 result and the same class map, and the measured
         per-step tile-class histogram (``tile_hist``) feeds the pricing.
 
+Every operand crosses into int8 through ``quantize_rows`` and every
+int32 result back through ``dequantize_rows``
+(``repro_torch/kernels/quant_rows.py``), one launch each way, with the
+bits of the eager engine's chains (``quant.py``).
+
 Weights. The int8 tensor cores read B only K-major, so the pass keeps
 each linear layer's int8 weight as (N, K), ``w_qk`` (the reference's
 ``w_q`` transposed, made once when the pass is built) and calls every
@@ -40,7 +45,8 @@ import torch
 
 from ...kernels import ops
 from ...kernels.common import LOW_BIT_MAX
-from . import classify, quant
+from ...kernels.quant_rows import dequantize_rows, quantize_rows
+from . import classify
 from .engine import DittoEngine
 from .plan import DittoPlan
 
@@ -68,7 +74,7 @@ def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
     Bit-identical int32 y_prev to the eager path for every mode."""
     x2 = x.reshape(-1, x.shape[-1])
     n = p["w_qk"].shape[0]
-    q_t = quant.quantize(x2, p["x_scale"])
+    q_t = quantize_rows(x2, p["x_scale"])
 
     aux: dict = {}
     if mode == "diff":
@@ -88,9 +94,7 @@ def linear_apply(p: dict, mode: str, x: torch.Tensor, st: dict, *,
         aux["cls_act"] = _class_counts(q_t)
 
     new_st = dict(x_prev=q_t, y_prev=y_i32)
-    y = y_i32.to(torch.float32) * p["x_scale"] * p["w_scale"][None, :]
-    if p["bias"] is not None:
-        y = y + p["bias"]
+    y = dequantize_rows(y_i32, p["x_scale"], p["w_scale"][None, :], p["bias"])
     return y.reshape(x.shape[:-1] + (n,)), new_st, aux
 
 
@@ -105,8 +109,8 @@ def attention_apply(p: dict, mode: str, a: torch.Tensor, b: torch.Tensor, st: di
     n = b.shape[-2]
     a2 = a.reshape(-1, m, d_)
     b2 = b.reshape(-1, n, d_)
-    qa = quant.quantize(a2, p["a_scale"])
-    qb = quant.quantize(b2, p["b_scale"])
+    qa = quantize_rows(a2, p["a_scale"])
+    qb = quantize_rows(b2, p["b_scale"])
 
     aux: dict = {}
     if mode == "diff":
@@ -123,7 +127,7 @@ def attention_apply(p: dict, mode: str, a: torch.Tensor, b: torch.Tensor, st: di
         aux["cls_act"] = _class_counts(torch.cat([qa.reshape(-1), qb.reshape(-1)]))
 
     new_st = dict(a_prev=qa, b_prev=qb, y_prev=y_i32)
-    y = y_i32.to(torch.float32) * p["a_scale"] * p["b_scale"]
+    y = dequantize_rows(y_i32, p["a_scale"], p["b_scale"])
     return y.reshape(lead + (m, n)), new_st, aux
 
 

@@ -63,7 +63,7 @@ __all__ = ["DEFAULT_LOW_BITS", "LOW_BIT_MAX", "pad2", "validate_low_bits",
            "diff_gemm_splits", "ENCODE_CLUSTERS", "encode_cluster", "sm_count",
            "resolve_device", "is_fake", "refuse_dtensor", "operands", "record_work",
            "recording", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build_library",
-           "cuda_fn", "call", "launch_check", "check_cuda_operand"]
+           "cuda_fn", "call", "launch_check", "row_strides", "check_cuda_operand"]
 
 #: The int8-everywhere default; DittoPlan.low_bits and every kernel
 #: signature share this one constant.
@@ -298,14 +298,50 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+def row_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """``t`` seen as (batch, rows, last dim), its leading dims flattened
+    into the batch: ``(rows a batch, row stride, batch stride)`` in
+    elements. ``None`` unless the last dim is contiguous, the leading dims
+    flatten at one stride and no two rows overlap: a slice of the rows and
+    columns of a contiguous tensor, such as a padded GEMM result cut back
+    to its shape."""
+    if t.dim() < 2:
+        return None
+    m, width = t.shape[-2:]
+    if width > 1 and t.stride(-1) != 1:
+        return None
+    ld = t.stride(-2) if m > 1 else width
+    batch_ld = span = None
+    for size, stride in reversed(list(zip(t.shape[:-2], t.stride()[:-2]))):
+        if size == 1:
+            continue
+        if batch_ld is None:
+            batch_ld, span = stride, stride * size
+        elif stride != span:
+            return None
+        else:
+            span *= size
+    if batch_ld is None:
+        batch_ld = m * ld
+    if ld < width or batch_ld < (m - 1) * ld + width:
+        return None
+    return m, ld, batch_ld
+
+
+def check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype, *, rows: bool = False,
+                       align: int = 16) -> None:
     """What every kernel needs of a tensor operand: on the card, the right
-    dtype, contiguous, and 16-byte aligned for vector loads."""
+    dtype, contiguous, and 16-byte aligned for vector loads. ``rows`` takes
+    strided rows (:func:`row_strides`) in place of contiguous;
+    ``align`` is the alignment in bytes (4 for an operand read as scalars)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if rows:
+        if row_strides(t) is None:
+            raise ValueError(f"{name}: expected strided rows, the last dim contiguous")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer is not {align}-byte aligned")

@@ -35,6 +35,21 @@ def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor, *,
     return exact_matmul(x_q, w_q.transpose(-1, -2) if w_transposed else w_q)
 
 
+def quantize_rows_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """fp32 divide, round half to even, clip to ±127, int8: the chain of
+    ``core/ditto/quant.py:quantize`` (the eager engine keeps its own copy)."""
+    q = torch.round(x.to(torch.float32) / scale)
+    return q.clamp(-127, 127).to(torch.int8)
+
+
+def dequantize_rows_ref(y: torch.Tensor, s_row: torch.Tensor, s_col: torch.Tensor,
+                        bias: torch.Tensor | None = None) -> torch.Tensor:
+    """int32 -> fp32 as the engine scales a product back:
+    ``y.to(float32) * s_row * s_col (+ bias)``, each step rounded to fp32."""
+    out = y.to(torch.float32) * s_row * s_col
+    return out if bias is None else out + bias
+
+
 def diff_encode_ref(x_t: torch.Tensor, x_prev: torch.Tensor,
                     tile: tuple[int, int]) -> torch.Tensor:
     """Per-tile class of Δ = x_t - x_prev: 0 zero / 1 low (<= LOW_BIT_MAX) /

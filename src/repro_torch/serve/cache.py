@@ -125,13 +125,15 @@ class RunnerKey:
 
 def _launch_counts() -> dict[str, int]:
     """The kernel wrappers' launch counters, by kernel."""
-    from ..kernels import diff_encode, ditto_diff_matmul, fused_step, int8_matmul
+    from ..kernels import diff_encode, ditto_diff_matmul, fused_step, int8_matmul, quant_rows
 
     return {"int8_matmul": int8_matmul.launches, "diff_encode": diff_encode.launches,
             "ditto_diff_matmul": ditto_diff_matmul.launches,
             "ditto_diff_matmul[low_bits=4]": ditto_diff_matmul.launches_int4,
             "diff_encode_fused": fused_step.encode_launches,
-            "ditto_fused_matmul": fused_step.matmul_launches}
+            "ditto_fused_matmul": fused_step.matmul_launches,
+            "quantize_rows": quant_rows.quantize_launches,
+            "dequantize_rows": quant_rows.dequantize_launches}
 
 
 def _leaves(tree, prefix=()):

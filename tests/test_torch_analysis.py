@@ -41,6 +41,7 @@ from repro_torch.kernels import diff_encode as k_encode  # noqa: E402
 from repro_torch.kernels import ditto_diff_matmul as k_diff  # noqa: E402
 from repro_torch.kernels import fused_step as k_fused  # noqa: E402
 from repro_torch.kernels import int8_matmul as k_int8  # noqa: E402
+from repro_torch.kernels import quant_rows as k_quant  # noqa: E402
 from repro_torch.launch import op_analysis  # noqa: E402
 from repro_torch.nn import dit as dit_mod  # noqa: E402
 
@@ -371,7 +372,7 @@ def test_shipped_c_abi_binds_every_entry():
     entries = {n for text in sources.values() for n in kernel_contract.c_entries(text)}
     assert entries == {"ditto_diff_encode", "ditto_diff_encode_fused", "ditto_diff_matmul",
                        "ditto_diff_gemm_splits", "ditto_fused_matmul", "ditto_int8_matmul",
-                       "ditto_error_string"}
+                       "ditto_error_string", "ditto_quantize_rows", "ditto_dequantize_rows"}
     assert {b["entry"] for b in kernel_contract.bindings(mods)} == entries
     assert kernel_contract.check_c_abi(mods, sources) == []
 
@@ -619,7 +620,8 @@ def test_tracing_never_launches(state, monkeypatch):
     monkeypatch.setattr(common, "build_library", no_build)
     counters = [(k_int8, "launches"), (k_encode, "launches"), (k_diff, "launches"),
                 (k_diff, "launches_int4"), (k_fused, "encode_launches"),
-                (k_fused, "matmul_launches")]
+                (k_fused, "matmul_launches"), (k_quant, "quantize_launches"),
+                (k_quant, "dequantize_launches")]
     before = [getattr(m, c) for m, c in counters]
     seen = {}
     for plan in (DittoPlan(collect_stats=True), DittoPlan(low_bits=4), DittoPlan(fused=True)):
@@ -631,7 +633,7 @@ def test_tracing_never_launches(state, monkeypatch):
     assert [getattr(m, c) for m, c in counters] == before
     assert set(seen) == {"int8_matmul", "diff_encode", "ditto_diff_matmul",
                          "ditto_diff_matmul[low_bits=4]", "diff_encode_fused",
-                         "ditto_fused_matmul"}
+                         "ditto_fused_matmul", "quantize_rows", "dequantize_rows"}
 
 
 def test_block_other_than_128_is_refused_on_meta(state):
