@@ -21,8 +21,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:1] = [ROOT, os.path.join(ROOT, "src")]
 
 from perfbench import harness  # noqa: E402
-from perfbench.inputs import make_request, make_weights  # noqa: E402
-from perfbench.reference import dit as ref  # noqa: E402
 
 
 def sample_requests(cell: harness.Cell, seed: int, device) -> list[harness.Request]:
@@ -34,8 +32,8 @@ def sample_requests(cell: harness.Cell, seed: int, device) -> list[harness.Reque
         sizes = [tr["images_per_request"]] * n
     out = []
     for i, images in enumerate(sizes):
-        x, labels = make_request(cell.config["model"], seed, i, images, device)
-        out.append(harness.Request(i, images, x, labels))
+        x, cond = cell.family.make_request(cell.config["model"], seed, i, images, device)
+        out.append(harness.Request(i, images, x, cond))
     return out
 
 
@@ -48,13 +46,13 @@ def control_gap(cell: harness.Cell, seed: int, device) -> float:
     """The control's widest relative gap from the reference at ``seed``."""
     import torch
 
-    cfg = cell.config
-    weights = make_weights(cfg["model"], seed, device)
+    fam = cell.family
+    weights = fam.make_weights(cell.config["model"], seed, device)
     reqs = sample_requests(cell, seed, device)
     with torch.no_grad():
-        served = [ref.sample(weights, cfg["model"], cfg["schedule"], cfg["plan"]["steps"],
-                             r.x, r.labels, bits=CONTROL_BITS) for r in reqs]
-    return harness.compare(cfg, weights, reqs, served=served)
+        served = [fam.reference_sample(weights, cell.config, r.x, r.cond, bits=CONTROL_BITS)
+                  for r in reqs]
+    return harness.compare(cell, weights, reqs, served=served)
 
 
 def main() -> int:

@@ -2,11 +2,20 @@
 drive the cell's traffic through it for the measured window, check what it
 served against the plain reference, and print the metrics.
 
-Everything that belongs to one configuration, traffic mix or metric is
-found by name: ``configs/<config>.json`` (through BENCHMARK.json's
-``file``), ``traffic/<traffic>.json`` and ``metrics/<metric>.py``. A
-traffic file names its ``kind``, one of :data:`TRAFFIC_KINDS`; a metric file
-defines ``read(run) -> float | None`` over a :class:`Run`.
+Everything that belongs to one configuration, model family, traffic mix or
+metric is found by name: ``configs/<config>.json`` (through BENCHMARK.json's
+``file``), ``families/<family>.py`` (the configuration's ``family``),
+``traffic/<traffic>.json`` and ``metrics/<metric>.py``. A traffic file
+names its ``kind``, one of :data:`TRAFFIC_KINDS`; a metric file defines
+``read(run) -> float | None`` over a :class:`Run`.
+
+A family module is everything that knows the model, behind the names of
+:data:`FAMILY_INTERFACE` (``families/dit.py``'s docstring gives each
+signature): it builds the program's scheduler, draws the weights and each
+request's noise and conditioning ``cond`` (a dict of tensors, a request's
+images on dim 0) from the seed, submits a request, samples the plain
+reference, and counts the model's operations and ``int8_matmul`` launches.
+The harness passes ``cond`` through without reading it.
 
 The program under test is ``repro_torch``'s serving stack: an async
 ``ServeScheduler`` over one ``ServeSession`` and its runner cache, built
@@ -41,6 +50,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 #: one producer each).
 KERNELS = {"int8_matmul": "ActProducer", "ditto_diff_matmul": "DiffProducer"}
 
+#: What a family module defines.
+FAMILY_INTERFACE = ("build_scheduler", "make_weights", "make_request", "submit",
+                    "reference_sample", "model_macs", "int8_matmul_launches")
+
 #: How long a client waits for an answer past the window's close.
 GRACE_S = 60.0
 
@@ -58,6 +71,7 @@ class Cell:
     traffic: dict  # the traffic mix's file
     end_to_end: list[dict]
     per_layer: list[dict]
+    family: object  # the configuration's family module
 
 
 def _reports(metric: dict, workload: str) -> bool:
@@ -71,11 +85,30 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
         raise SystemExit(f"unknown workload {workload!r}; BENCHMARK.json has {sorted(cells)}")
     w = cells[workload]
     cfg = next(c for c in bench["configs"] if c["name"] == w["config"])
-    return Cell(name=workload, chips=w["chips"],
-                config=json.loads((root / cfg["file"]).read_text()),
+    config = json.loads((root / cfg["file"]).read_text())
+    if "family" not in config:
+        raise SystemExit(f"{cfg['file']} names no family; add \"family\": \"<name>\" for "
+                         f"perfbench/families/<name>.py")
+    return Cell(name=workload, chips=w["chips"], config=config,
                 traffic=json.loads((HERE / "traffic" / f"{w['traffic']}.json").read_text()),
                 end_to_end=[m for m in bench["end_to_end"] if _reports(m, workload)],
-                per_layer=[m for m in bench["per_layer"] if _reports(m, workload)])
+                per_layer=[m for m in bench["per_layer"] if _reports(m, workload)],
+                family=load_family(config["family"]))
+
+
+def load_family(name: str, root: Path = HERE):
+    """``<root>/families/<name>.py`` as a module, with the whole of
+    :data:`FAMILY_INTERFACE`."""
+    path = root / "families" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"unknown model family {name!r}: no file {path}")
+    spec = importlib.util.spec_from_file_location(f"perfbench_family_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [f for f in FAMILY_INTERFACE if not callable(getattr(mod, f, None))]
+    if missing:
+        raise SystemExit(f"model family {path} lacks {missing}")
+    return mod
 
 
 def load_reader(name: str):
@@ -89,32 +122,24 @@ def load_reader(name: str):
 
 # ------------------------------------------------------------ the program
 class Program:
-    """The system under test: an async ``ServeScheduler`` of the
-    configuration's model and plan over ``weights``, warmed up."""
+    """The system under test: the cell's family's async ``ServeScheduler``
+    of the configuration's model and plan over ``weights``, warmed up."""
 
-    def __init__(self, config: dict, traffic: dict, weights: dict, device):
-        from repro_torch.core import diffusion
-        from repro_torch.core.ditto import DittoPlan
-        from repro_torch.nn.dit import DiTCfg
-        from repro_torch.serve import ServeScheduler
-
-        m, s = config["model"], config["schedule"]
-        self.cfg = DiTCfg(d_model=m["hidden_size"], n_layers=m["depth"], n_heads=m["num_heads"],
-                          patch=m["patch_size"], in_channels=m["in_channels"],
-                          input_size=m["input_size"], mlp_ratio=m["mlp_ratio"],
-                          n_classes=m["num_classes"])
-        self.plan = DittoPlan(**config["plan"])
-        noise = diffusion.linear_schedule(s["T"], s["beta_start"], s["beta_end"])
-        self.sched = ServeScheduler(weights, self.cfg, noise, self.plan, device=device,
-                                    async_mode=True)
+    def __init__(self, cell: Cell, weights: dict, device):
+        self.family = cell.family
+        self.sched = cell.family.build_scheduler(cell.config, weights, device)
+        self.plan = self.sched.session.plan
         mb = self.plan.max_batch
-        buckets = [mb] if traffic["warmup"] == "max_batch" else [
+        buckets = [mb] if cell.traffic["warmup"] == "max_batch" else [
             1 << i for i in range(mb.bit_length())]
         self.warm = self.sched.warmup(buckets=buckets)
 
     @property
     def cache(self):
         return self.sched.session.cache
+
+    def submit(self, x, cond: dict, **kw):
+        return self.family.submit(self.sched, x, cond, **kw)
 
     def snapshot(self) -> dict:
         """The scheduler's counters and the cache's replays a runner key."""
@@ -129,8 +154,8 @@ class Program:
 class Request:
     index: int
     images: int
-    x: object  # noise (images, H, W, C)
-    labels: object
+    x: object  # noise (images, ...)
+    cond: dict  # the family's conditioning tensors, each (images, ...)
     due: float | None = None  # monotonic seconds the request was due
     in_hand: float | None = None  # its rows returned by Ticket.result()
     done_t: float | None = None  # the scheduler's completion time
@@ -170,8 +195,6 @@ def drive_backlog(prog: Program, cell: Cell, seed: int, seconds: float, device, 
     """A closed loop that keeps at least ``queued_batches`` x max_batch rows
     queued, so every dispatch is a full bucket. The window opens at a
     completion and closes at the first completion ``seconds`` later."""
-    from .inputs import make_request
-
     tr, model = cell.traffic, cell.config["model"]
     per = tr["images_per_request"]
     keep = tr["queued_batches"] * prog.plan.max_batch
@@ -184,9 +207,9 @@ def drive_backlog(prog: Program, cell: Cell, seed: int, seconds: float, device, 
     while True:
         queued = prog.sched.stats()["queued_rows"]
         while queued < keep:
-            x, labels = make_request(model, seed, index, per, device)
-            r = Request(index, per, x, labels)
-            r.ticket = prog.sched.submit(x, labels)
+            x, cond = cell.family.make_request(model, seed, index, per, device)
+            r = Request(index, per, x, cond)
+            r.ticket = prog.submit(x, cond)
             outstanding.append(r)
             index += 1
             queued += per
@@ -252,8 +275,6 @@ def drive_poisson(prog: Program, cell: Cell, seed: int, seconds: float, device, 
     ``seconds``; it closes when the last of them is in hand (or ``GRACE_S``
     after, when one never comes). Later arrivals keep the load on meanwhile
     and are not measured."""
-    from .inputs import make_request
-
     tr, model = cell.traffic, cell.config["model"]
     warm_tr = dict(tr, schedule_seed=tr["schedule_seed"] + 1, tail_s=0.0)
     warm, n_warm = poisson_schedule(warm_tr, seed, tr["warm_s"]) if tr["warm_s"] else ([], 0)
@@ -261,7 +282,7 @@ def drive_poisson(prog: Program, cell: Cell, seed: int, seconds: float, device, 
     reqs = [Request(WARM_INDEX + i, n, None, None) for i, (_, n) in enumerate(warm[:n_warm])]
     reqs += [Request(i, n, None, None) for i, (_, n) in enumerate(schedule)]
     for r in reqs:  # all inputs made in set-up: no client touches the card before it submits
-        r.x, r.labels = make_request(model, seed, r.index, r.images, device)
+        r.x, r.cond = cell.family.make_request(model, seed, r.index, r.images, device)
     measured = reqs[n_warm:n_warm + n_in]
     lock = threading.Lock()
     stop = threading.Event()
@@ -283,7 +304,7 @@ def drive_poisson(prog: Program, cell: Cell, seed: int, seconds: float, device, 
             if stop.wait(max(r.due - time.monotonic(), 0.0)):
                 return
             try:
-                r.ticket = prog.sched.submit(r.x, r.labels, deadline_ms=tr["deadline_ms"])
+                r.ticket = prog.submit(r.x, r.cond, deadline_ms=tr["deadline_ms"])
             except Exception as exc:  # noqa: BLE001 - a refused request counts as failed
                 r.error = repr(exc)
                 continue
@@ -342,24 +363,24 @@ def pick_sample(measured: list[Request], count: int, seed: int) -> list[Request]
     return [largest] + [rest[int(i)] for i in take]
 
 
-def compare(config: dict, weights: dict, picked: list[Request],
+def compare(cell: Cell, weights: dict, picked: list[Request],
             served: list | None = None) -> float:
     """The widest relative L2 gap of a served image's latents from the
-    reference's. ``served`` stands in for the requests' served latents
-    (the control)."""
+    family's reference's, in blocks of the configuration's
+    ``reference_block`` images. ``served`` stands in for the requests'
+    served latents (the control)."""
     import torch
 
-    from .reference import dit as ref
-
     xs = torch.cat([r.x for r in picked])
-    labels = torch.cat([r.labels for r in picked])
+    cond = {k: torch.cat([r.cond[k] for r in picked]) for k in picked[0].cond}
     got = torch.cat(served if served is not None else [r.sample for r in picked])
-    block = config["reference_block"]
+    block = cell.config["reference_block"]
     worst = 0.0
     with torch.no_grad():
         for lo in range(0, xs.shape[0], block):
-            want = ref.sample(weights, config["model"], config["schedule"],
-                              config["plan"]["steps"], xs[lo:lo + block], labels[lo:lo + block])
+            want = cell.family.reference_sample(
+                weights, cell.config, xs[lo:lo + block],
+                {k: v[lo:lo + block] for k, v in cond.items()})
             diff = (got[lo:lo + block].to(want.device) - want).flatten(1).norm(dim=1)
             rel = diff / want.flatten(1).norm(dim=1)
             worst = max(worst, float(rel.max()))
@@ -376,8 +397,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     """One run; returns the result line's object (``correct`` included)."""
     import torch
 
-    from .inputs import make_weights
-
     t_start = time.monotonic() if t_start is None else t_start
     on_card = torch.device(device).type == "cuda"
     phases = {"imports": time.monotonic() - t_start}
@@ -386,12 +405,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
 
         phases["build"] = build_library()[1]
     t = time.monotonic()
-    weights = make_weights(cell.config["model"], seed, device)
+    weights = cell.family.make_weights(cell.config["model"], seed, device)
     if on_card:
         torch.cuda.synchronize()
     phases["weights"] = time.monotonic() - t
     t = time.monotonic()
-    prog = Program(cell.config, cell.traffic, weights, device)
+    prog = Program(cell, weights, device)
     phases["program"] = time.monotonic() - t
     tracer = None
     if trace:
@@ -433,7 +452,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     picked = pick_sample(measured, cell.traffic["sample_requests"], seed)
     failed = sum(r.sample is None for r in measured)
     limit = cell.config["correct"]["latent_rel_err"]
-    gap = compare(cell.config, weights, picked) if picked else None
+    gap = compare(cell, weights, picked) if picked else None
     print(f"perfbench: compared {sum(r.images for r in picked)} images of {len(picked)} "
           f"requests with the reference", file=sys.stderr)
     checks = {"unanswered": {"value": failed, "limit": 0},

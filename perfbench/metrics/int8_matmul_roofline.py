@@ -2,10 +2,10 @@
 the window over the kernel's device time there, in %.
 
 The launches of a replayed step follow from its runner key (the layers'
-modes and the bucket: ``roofline.int8_matmul_launches``) and the window's
-replays of each key. Nothing is read unless that count equals both the
-runner cache's own (its launches a capture x the replays) and the launches
-the trace shows."""
+modes and the bucket: the cell's family's ``int8_matmul_launches``) and
+the window's replays of each key. Nothing is read unless that count equals
+both the runner cache's own (its launches a capture x the replays) and the
+launches the trace shows."""
 import sys
 
 from perfbench import roofline
@@ -22,7 +22,7 @@ def read(run):
         n = run.close_snap["replays"].get(key, 0) - run.open_snap["replays"].get(key, 0)
         if not n:
             continue
-        shapes = roofline.int8_matmul_launches(run.model, modes, bucket)
+        shapes = run.cell.family.int8_matmul_launches(run.model, modes, bucket)
         bound += n * sum(roofline.launch_bound(*roofline.int8_matmul_work(*s)) for s in shapes)
         counted += n * len(shapes)
         cached += n * launches.get("int8_matmul", 0)

@@ -1,5 +1,7 @@
-"""The yardstick's arithmetic: the card's peaks, a kernel launch's work and
-bound, the model's dense operations and the union of device intervals.
+"""The yardstick's card-wide arithmetic: the card's peaks, a kernel
+launch's work and bound, and the union of device intervals. What knows a
+model (its dense operations, its launches a step) is its family's
+(``families/<family>.py``).
 
 Frozen copies, so that a change to the program cannot move them:
 ``int8_matmul_work`` is ``chip_smoke.py:work()``'s int8_matmul branch and
@@ -22,47 +24,6 @@ def int8_matmul_work(batch: int, m: int, k: int, n: int, w_batch: int) -> tuple[
 def launch_bound(ops: float, nbytes: float) -> float:
     """The least seconds a launch can take on the card."""
     return max(ops / PEAK_INT8_OPS, nbytes / HBM_BYTES_PER_S)
-
-
-def model_macs(model: dict) -> int:
-    """Dense multiply-accumulates of one DiT forward of one image: every
-    linear layer (per token, and the per-image adaLN, timestep and final
-    modulation products), attention's Q K^T and P V, patch embedding and
-    the output projection."""
-    d, depth, p, ch = (model["hidden_size"], model["depth"], model["patch_size"],
-                       model["in_channels"])
-    n = (model["input_size"] // p) ** 2
-    ff = int(model["mlp_ratio"] * d)
-    per_token = 4 * d * d + 2 * d * ff
-    block = n * per_token + 2 * n * n * d + d * 6 * d
-    head = n * p * p * ch * d + 256 * d + d * d + d * 2 * d + n * d * p * p * ch
-    return depth * block + head
-
-
-def int8_matmul_launches(model: dict, modes: dict[str, str], bucket: int) -> list[tuple]:
-    """(batch, M, K, N, w_batch) of every ``int8_matmul`` launch of one
-    compiled step over ``bucket`` samples whose layers run in ``modes``
-    (layer -> "act" / "diff" / "spatial"): the act and spatial linear layers
-    and the act attention products."""
-    d, nh, p, ch = model["hidden_size"], model["num_heads"], model["patch_size"], model["in_channels"]
-    n = (model["input_size"] // p) ** 2
-    ff = int(model["mlp_ratio"] * d)
-    hd = d // nh
-    shapes = {"mod": (1, bucket, d, 6 * d, 1), "wq": (1, bucket * n, d, d, 1),
-              "wk": (1, bucket * n, d, d, 1), "wv": (1, bucket * n, d, d, 1),
-              "wo": (1, bucket * n, d, d, 1), "wi": (1, bucket * n, d, ff, 1),
-              "wd": (1, bucket * n, ff, d, 1),
-              "qk": (bucket * nh, n, hd, n, bucket * nh),
-              "pv": (bucket * nh, n, n, hd, bucket * nh)}
-    out = []
-    for layer, mode in modes.items():
-        attention = layer.endswith((".qk", ".pv"))
-        if mode == "act" or (mode == "spatial" and not attention):
-            if layer == "final.out":
-                out.append((1, bucket * n, d, p * p * ch, 1))
-            else:
-                out.append(shapes[layer.rsplit(".", 1)[1]])
-    return out
 
 
 def union_s(intervals) -> float:

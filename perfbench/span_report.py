@@ -310,11 +310,10 @@ def counts_check(cell, seed: int, device="cuda") -> dict:
     """Serve a few dispatches of the cell's model and plan (full and partial
     buckets) with the recorder on; the span counts beside the counters."""
     from perfbench.harness import Program
-    from perfbench.inputs import make_request, make_weights
     from repro_torch import spans as recorder
 
     model = cell.config["model"]
-    prog = Program(cell.config, cell.traffic, make_weights(model, seed, device), device)
+    prog = Program(cell, cell.family.make_weights(model, seed, device), device)
     mb = prog.plan.max_batch
     sizes = [min(4, mb)] * (2 * mb // min(4, mb)) + [1, 2, 1]
     before = prog.sched.stats()
@@ -322,8 +321,8 @@ def counts_check(cell, seed: int, device="cuda") -> dict:
     try:
         tickets = []
         for i, n in enumerate(sizes):
-            x, labels = make_request(model, seed, i, n, device)
-            tickets.append(prog.sched.submit(x, labels, deadline_ms=500.0))
+            x, cond = cell.family.make_request(model, seed, i, n, device)
+            tickets.append(prog.submit(x, cond, deadline_ms=500.0))
         for t in tickets:
             t.result(timeout=600.0)
         prog.sched.flush()

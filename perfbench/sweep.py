@@ -31,21 +31,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:1] = [ROOT, os.path.join(ROOT, "src")]
 
 from perfbench import harness  # noqa: E402
-from perfbench.inputs import make_request, make_weights  # noqa: E402
 from perfbench.stats import percentile  # noqa: E402
 
 #: Full dispatches whose median wall sets the latency limit.
 DISPATCHES = 5
 
 
-def dispatch_wall(prog: harness.Program, model: dict, seed: int, n: int, device) -> float:
+def dispatch_wall(prog: harness.Program, cell: harness.Cell, seed: int, n: int,
+                  device) -> float:
     """Median wall of ``n`` full dispatches, one after another."""
     mb = prog.plan.max_batch
     walls = []
     for i in range(n):
-        x, labels = make_request(model, seed, 10_000 + i, mb, device)
+        x, cond = cell.family.make_request(cell.config["model"], seed, 10_000 + i, mb, device)
         t0 = time.monotonic()
-        prog.sched.submit(x, labels).result()
+        prog.submit(x, cond).result()
         walls.append(time.monotonic() - t0)
     return statistics.median(walls)
 
@@ -67,11 +67,10 @@ def main() -> int:
     cell = harness.load_cell(args.workload)
     device = "cuda"
     build_library()
-    model = cell.config["model"]
-    prog = harness.Program(cell.config, cell.traffic,
-                           make_weights(model, args.seed, device), device)
+    prog = harness.Program(cell, cell.family.make_weights(cell.config["model"], args.seed,
+                                                          device), device)
     try:
-        wall = dispatch_wall(prog, model, args.seed, DISPATCHES, device)
+        wall = dispatch_wall(prog, cell, args.seed, DISPATCHES, device)
         limit = 2 * wall
         print(json.dumps({"full_dispatch_wall_s": wall, "limit_s": limit}), flush=True)
         knee = failing = None

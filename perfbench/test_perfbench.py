@@ -1,22 +1,23 @@
-"""CPU tests of the benchmark: the cells resolve from their files, the
-yardstick's arithmetic, the run's last line, the reference against the
-program, the control and planted faults failing ``correct``, and the
-imports. A run here drives the program's plain CPU path at a tiny size;
-nothing here needs a card."""
+"""CPU tests of the benchmark: the cells and their model families resolve
+from their files, the yardstick's arithmetic, the family's draws held to
+recorded digests, the run's last line, the reference against the program,
+the control and planted faults failing ``correct``, and the imports. A run
+here drives the program's plain CPU path at a tiny size; nothing here
+needs a card."""
 from __future__ import annotations
 
 import ast
+import hashlib
 import json
 import math
 import re
+import shutil
 from pathlib import Path
 
 import pytest
 import torch
 
 from perfbench import control, harness, roofline, stats, tracing
-from perfbench.inputs import make_request, make_weights
-from perfbench.reference import dit as ref
 
 HERE = Path(__file__).resolve().parent
 BENCH = json.loads((HERE.parent / "BENCHMARK.json").read_text())
@@ -24,6 +25,7 @@ BENCH = json.loads((HERE.parent / "BENCHMARK.json").read_text())
 TINY = {"input_size": 8, "patch_size": 2, "in_channels": 4, "hidden_size": 64, "depth": 2,
         "num_heads": 2, "mlp_ratio": 4.0, "num_classes": 10}
 SEED = 2**31 + 17
+DIT = harness.load_family("dit")
 
 
 def tiny_cell(name: str) -> harness.Cell:
@@ -84,12 +86,42 @@ def test_benchmark_json_keeps_the_contract():
     assert all(w["chips"] == 1 for w in BENCH["workloads"])
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_names_a_family_with_the_whole_interface(config):
+    entry = next(c for c in BENCH["configs"] if c["name"] == config)
+    family = json.loads((HERE.parent / entry["file"]).read_text())["family"]
+    assert (HERE / "families" / f"{family}.py").is_file()
+    mod = harness.load_family(family)
+    assert all(callable(getattr(mod, f)) for f in harness.FAMILY_INTERFACE)
+    for w in BENCH["workloads"]:
+        if w["config"] == config:
+            assert harness.load_cell(w["name"]).family.__file__ == mod.__file__
+
+
+@pytest.mark.parametrize("family, looked_for", [(None, "perfbench/configs/dit-xl2-256.json"),
+                                                ("nosuch", "families/nosuch.py")])
+def test_load_cell_refuses_a_missing_or_an_unknown_family(family, looked_for, tmp_path):
+    """A configuration without ``family``, or naming one with no module,
+    is refused, and the message names the file looked for."""
+    shutil.copy(HERE.parent / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    entry = next(c for c in BENCH["configs"] if c["name"] == "dit-xl2-256")
+    config = json.loads((HERE.parent / entry["file"]).read_text())
+    del config["family"]
+    if family is not None:
+        config["family"] = family
+    (tmp_path / entry["file"]).parent.mkdir(parents=True)
+    (tmp_path / entry["file"]).write_text(json.dumps(config))
+    with pytest.raises(SystemExit, match=re.escape(looked_for)):
+        harness.load_cell("dit-xl2-256.offline", root=tmp_path)
+
+
 # --------------------------------------------------------------- yardstick
 @pytest.mark.parametrize("size, gmacs", [(32, 118.6), (64, 524.6)])
 def test_model_macs_match_dit_paper(size, gmacs):
     """DiT-XL/2's Gflops (the DiT paper's table 4: multiply-accumulates)."""
-    model = dict(harness.load_cell("dit-xl2-256.offline").config["model"], input_size=size)
-    assert roofline.model_macs(model) / 1e9 == pytest.approx(gmacs, rel=5e-4)
+    cell = harness.load_cell("dit-xl2-256.offline")
+    model = dict(cell.config["model"], input_size=size)
+    assert cell.family.model_macs(model) / 1e9 == pytest.approx(gmacs, rel=5e-4)
 
 
 def test_frozen_bound_of_the_wi_launch():
@@ -104,9 +136,45 @@ def test_int8_launches_follow_the_modes():
     model = harness.load_cell("dit-xl2-256.offline").config["model"]
     modes = {"blk0.wq": "act", "blk0.wi": "diff", "blk0.qk": "act", "blk0.pv": "diff",
              "blk0.mod": "spatial", "final.out": "act", "blk1.qk": "spatial"}
-    got = sorted(roofline.int8_matmul_launches(model, modes, 16))
+    got = sorted(DIT.int8_matmul_launches(model, modes, 16))
     assert got == sorted([(1, 4096, 1152, 1152, 1), (256, 256, 72, 256, 256),
                           (1, 16, 1152, 6912, 1), (1, 4096, 1152, 16, 1)])
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _digest(named) -> str:
+    h = hashlib.sha256()
+    for name, t in named:
+        h.update(repr((name, tuple(t.shape), str(t.dtype))).encode())
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+#: The tiny model's weights and requests (3 images at indices 0, 7 and a
+#: Poisson warm-up arrival's) on the CPU, recorded before DiT's draws moved
+#: into ``families/dit.py``: the family draws them call for call as before.
+DRAWS = {1: ("5cdcdf170dc27ba5", "7fc27afae92893c5", "2403420a5b56b108", "1cc2835eab0f7936"),
+         2**31 + 17: ("bde1816f6ba41dc2", "cec4914ac1e5cb9f", "01f023845c18d0ca",
+                      "91dc4e8c4ee7449d"),
+         2**33 + 5: ("e037c24b67b7370e", "74d2397fba891dbe", "f880ea70d5ee4490",
+                     "be4cef25797ce4f9")}
+
+
+@pytest.mark.parametrize("seed", sorted(DRAWS))
+def test_the_family_draws_the_recorded_weights_and_requests(seed):
+    want = DRAWS[seed]
+    assert _digest(_flat(DIT.make_weights(TINY, seed, "cpu"))) == want[0]
+    for index, digest in zip((0, 7, harness.WARM_INDEX + 3), want[1:]):
+        x, cond = DIT.make_request(TINY, seed, index, 3, "cpu")
+        assert set(cond) == {"labels"}
+        assert _digest([("x", x), ("labels", cond["labels"])]) == digest
 
 
 def test_union_and_idle_share_of_synthetic_intervals():
@@ -159,6 +227,60 @@ def test_a_sound_run_is_correct_and_prints_the_last_line(workload, capsys):
     assert capsys.readouterr().err.rstrip().splitlines()[-1].startswith("check latent_rel_err")
 
 
+#: A family that wraps DiT's and adds a tensor to ``cond``: each row names
+#: its request and its image, so a row handed on out of place shows.
+WRAPPED = """
+import torch
+
+from perfbench.harness import load_family
+
+_dit = load_family("dit")
+build_scheduler, make_weights = _dit.build_scheduler, _dit.make_weights
+model_macs, int8_matmul_launches = _dit.model_macs, _dit.int8_matmul_launches
+CALLS = {"submit": [], "reference": []}
+
+
+def make_request(model, seed, index, images, device):
+    x, cond = _dit.make_request(model, seed, index, images, device)
+    tag = torch.stack([torch.full((images,), index), torch.arange(images)], dim=1)
+    return x, dict(cond, tag=tag.to(device))
+
+
+def submit(sched, x, cond, **kw):
+    CALLS["submit"].append(cond)
+    return _dit.submit(sched, x, cond, **kw)
+
+
+def reference_sample(weights, config, x, cond, bits=8):
+    CALLS["reference"].append(cond)
+    return _dit.reference_sample(weights, config, x, cond, bits=bits)
+"""
+
+
+def test_a_family_under_another_root_gets_each_cond_tensor_in_place(tmp_path):
+    """A run hands ``submit`` and ``reference_sample`` the same conditioning
+    tensors, row for row, key by key, in the reference's blocks."""
+    (tmp_path / "families").mkdir()
+    (tmp_path / "families" / "wrapped.py").write_text(WRAPPED)
+    cell = tiny_cell("dit-xl2-256.offline")
+    cell.family = harness.load_family("wrapped", root=tmp_path)
+    out = harness.run_cell(cell, SEED, 0.4, False, device="cpu")
+    assert out["correct"] is True
+    calls = cell.family.CALLS
+    assert calls["submit"] and calls["reference"]
+    submitted = {int(c["tag"][0, 0]): c for c in calls["submit"]}
+    seen = []
+    for cond in calls["reference"]:
+        assert set(cond) == {"labels", "tag"}
+        assert 0 < cond["labels"].shape[0] <= cell.config["reference_block"]
+        for (index, j), label in zip(cond["tag"].tolist(), cond["labels"].tolist()):
+            assert submitted[index]["labels"][j] == label
+            seen.append((index, j))
+    # every image of each compared request, once
+    assert sorted(seen) == sorted((i, j) for i in {i for i, _ in seen}
+                                  for j in range(submitted[i]["labels"].shape[0]))
+
+
 def test_the_sweep_refuses_without_a_card(monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal is for a machine without one")
@@ -180,28 +302,21 @@ def test_main_refuses_without_a_card(capsys):
 
 
 def test_reference_equals_the_program_on_a_two_block_dit():
-    """The program's served latents (ServeSession, plain CPU path) and the
-    reference's, from the same weights, noise and labels."""
-    from repro_torch.core import diffusion
-    from repro_torch.core.ditto import DittoPlan
-    from repro_torch.nn.dit import DiTCfg
-    from repro_torch.serve import ServeSession
-
+    """The program's served latents (the family's scheduler, plain CPU
+    path) and the family's reference's, from the same weights, noise and
+    labels."""
     cell = tiny_cell("dit-xl2-256.offline")
-    m, s, plan = cell.config["model"], cell.config["schedule"], cell.config["plan"]
-    weights = make_weights(m, SEED, "cpu")
-    x, labels = make_request(m, SEED, 0, 3, "cpu")
-    cfg = DiTCfg(d_model=m["hidden_size"], n_layers=m["depth"], n_heads=m["num_heads"],
-                 patch=m["patch_size"], in_channels=m["in_channels"],
-                 input_size=m["input_size"], mlp_ratio=m["mlp_ratio"],
-                 n_classes=m["num_classes"])
-    sess = ServeSession(weights, cfg, diffusion.linear_schedule(s["T"], s["beta_start"],
-                                                                s["beta_end"]),
-                        DittoPlan(**plan), device="cpu")
-    got = sess.serve(x, labels).sample
-    want = ref.sample(weights, m, s, plan["steps"], x, labels)
+    fam, m = cell.family, cell.config["model"]
+    weights = fam.make_weights(m, SEED, "cpu")
+    x, cond = fam.make_request(m, SEED, 0, 3, "cpu")
+    sched = fam.build_scheduler(cell.config, weights, "cpu")
+    try:
+        got = fam.submit(sched, x, cond).result(timeout=120.0)
+    finally:
+        sched.close(drain=False, join_timeout_s=60.0)
+    want = fam.reference_sample(weights, cell.config, x, cond)
     assert torch.equal(got, want)
-    coarse = ref.sample(weights, m, s, plan["steps"], x, labels, bits=4)
+    coarse = fam.reference_sample(weights, cell.config, x, cond, bits=4)
     assert not torch.allclose(coarse, want, rtol=0.05, atol=0.05)
 
 
@@ -252,15 +367,26 @@ def test_a_planted_fault_makes_correct_false(fault, monkeypatch):
 
 
 # ----------------------------------------------------------------- imports
-def _imports(path: Path) -> set[str]:
-    """Every module an ``import`` anywhere in ``path`` names (relative
-    imports as ``.name``)."""
+def _absolute(path: Path, name: str) -> str:
+    """``name`` as imported from ``path`` in the ``perfbench`` package."""
+    rest = name.lstrip(".")
+    level = len(name) - len(rest)
+    if not level:
+        return name
+    pkg = ["perfbench", *path.parent.relative_to(HERE).parts]
+    return ".".join(pkg[:len(pkg) - level + 1] + ([rest] if rest else []))
+
+
+def _imported(path: Path) -> set[str]:
+    """Every module ``path`` imports, absolute, with ``from m import n``
+    also as ``m.n``."""
     out = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             out |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom):
-            out.add("." * node.level + (node.module or ""))
+            mod = _absolute(path, "." * node.level + (node.module or ""))
+            out |= {mod} | {f"{mod}.{a.name}" for a in node.names}
     return out
 
 
@@ -269,10 +395,28 @@ SOURCES = sorted(p for p in HERE.rglob("*.py") if not p.name.startswith("test_")
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(HERE)))
 def test_no_jax_or_jax_package_import(path):
-    tops = {m.split(".")[0] for m in _imports(path) if not m.startswith(".")}
+    tops = {m.split(".")[0] for m in _imported(path)}
     assert not tops & {"jax", "jaxlib", "flax", "repro"}, tops
     if path.parent.name == "reference":
         assert tops <= {"__future__", "math", "torch"}, tops
+
+
+#: Where the model may be named: its family's module and its reference.
+MODEL_DIRS = ("families", "reference")
+DIT_MODULES = {"repro_torch.nn.dit", "perfbench.reference.dit"}
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in SOURCES if p.relative_to(HERE).parts[0] not in MODEL_DIRS],
+    ids=lambda p: str(p.relative_to(HERE)))
+def test_only_the_family_and_the_reference_import_the_model(path):
+    assert not _imported(path) & DIT_MODULES
+
+
+def test_the_import_check_resolves_relative_imports():
+    assert "perfbench.reference.dit" in _imported(HERE / "families" / "dit.py")
+    assert _absolute(HERE / "harness.py", ".reference") == "perfbench.reference"
+    assert _absolute(HERE / "metrics" / "mfu.py", "..reference") == "perfbench.reference"
 
 
 def test_the_run_names_jax_and_the_jax_package_by_whole_top_level_name(monkeypatch):
